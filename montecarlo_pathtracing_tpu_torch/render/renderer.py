@@ -1,0 +1,251 @@
+"""Progressive renderer: accumulation as a running sum on the device.
+
+Port of montecarlo_pathtracing_tpu/render/renderer.py, the replacement
+for the reference's FBO additive-blend protocol (MontecarloGPU/
+montecarlo.cpp:420-476): each pass renders 1 spp per pixel with a
+pass-indexed RNG seed and adds into a float32 accumulator (GL_ONE/GL_ONE
+blending analog); the resolve divides by the pass count (average.frag).
+The accumulator, pass count and RNG pass index serialize to an .npz so
+long renders checkpoint and resume (SURVEY.md §5).
+
+Large images are processed in ray tiles of `tile_rays`. Pixels are laid
+out in 32x32 screen blocks so that each 4096-ray tile of the megakernel's
+super visit order is screen-compact.
+
+Unlike the reference there is no fallback chain: a kernel that fails to
+build or launch raises.
+"""
+from __future__ import annotations
+
+import json
+import warnings
+from dataclasses import dataclass, asdict
+
+import numpy as np
+import torch
+
+from ..models.registry import get_integrator
+from ..scene.device import DeviceScene
+from ..utils.image import write_png
+from .camera import default_rt_camera, camera_rays
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """The reference's knobs (ImGui sliders + defaults,
+    montecarlo.cpp:128-130,584-606,801) as a config dataclass. The JAX
+    package's `use_pallas` is `use_kernels` here, and defaults to True
+    because the kernel routes are the ported ones (the dense route is
+    ROADMAP item A.7); `device` names the torch device the render runs
+    on and must match the scene's."""
+    width: int = 1280
+    height: int = 1000
+    nb_bounces: int = 3          # slider 0-9
+    paths_per_pass: int = 1      # slider 1-8
+    subsampling: int = 0         # power-of-2 resolution divisor, 0-5
+    refract_ind: float = 1.0     # slider 1.0-2.5
+    light_intensity: float = 1.2
+    date: float = 0.0            # deterministic stand-in for wall clock
+    integrator: str = "montecarlo"
+    flat_face: bool = False
+    detach_sampling: bool = False
+    use_kernels: bool = True     # hand-written GPU kernels (CPU: plain)
+    use_megakernel: bool | None = None  # None = auto-route (montecarlo.py)
+    # steers only the pallas-trace route (ROADMAP A.9); kept so configs
+    # and checkpoints carry the reference's fields
+    cull_chunks: bool | None = None
+    pixel_order: str = "block32"  # "block32" tiles the image into 32x32
+    # pixel blocks so each ray tile is screen-compact; "scanline" =
+    # row-major
+    passes_per_call: int = 8     # passes folded into one advance step
+    shard_devices: int = 0       # >1: shard rays over devices (A.13)
+    tile_rays: int = 1 << 16
+    device: str = "cpu"
+
+    @property
+    def render_width(self) -> int:
+        return max(1, self.width >> self.subsampling)
+
+    @property
+    def render_height(self) -> int:
+        return max(1, self.height >> self.subsampling)
+
+
+# config keys that steer the route or the device, not the radiance: a
+# checkpoint resumes across them (with a warning)
+_ROUTING_ONLY = {"use_kernels", "use_megakernel", "cull_chunks", "device"}
+
+
+def _round_up(n, m):
+    return ((n + m - 1) // m) * m
+
+
+def _block_perm(w: int, h: int, bs: int = 32) -> np.ndarray:
+    """Permutation putting pixels in bs x bs screen blocks (row-major
+    blocks, row-major within a block)."""
+    idx = np.arange(w * h).reshape(h, w)
+    parts = []
+    for by in range(0, h, bs):
+        for bx in range(0, w, bs):
+            parts.append(idx[by:by + bs, bx:bx + bs].ravel())
+    return np.concatenate(parts)
+
+
+class Renderer:
+    """Progressive path-tracing renderer over a compiled device scene."""
+
+    def __init__(self, scene: DeviceScene, config: RenderConfig,
+                 proj: np.ndarray | None = None,
+                 view: np.ndarray | None = None):
+        if config.shard_devices > 1:
+            raise NotImplementedError(
+                "multi-device rendering is not ported yet: ROADMAP A.13")
+        self.device = torch.device(config.device)
+        if scene.device.type != self.device.type:
+            raise ValueError(f"scene is on {scene.device}, config.device is "
+                             f"{config.device}")
+        self.scene = scene
+        self.config = config
+        w, h = config.render_width, config.render_height
+        if proj is None or view is None:
+            proj, view = default_rt_camera(w, h)
+        self.proj, self.view = proj, view
+        origin, dirs, tc = camera_rays(proj, view, w, h, device=self.device)
+        npix = w * h
+        pad = _round_up(npix, min(config.tile_rays, _round_up(npix, 256)))
+        self._npix = npix
+        self._tile = min(config.tile_rays, pad)
+        self._ntiles = pad // self._tile
+        if config.pixel_order == "block32":
+            perm = _block_perm(w, h)
+        else:
+            perm = np.arange(npix)
+        self._inv_perm = np.argsort(perm)
+        perm_t = torch.as_tensor(perm, device=self.device)
+        d = torch.cat([dirs.reshape(npix, 3)[perm_t],
+                       dirs.new_tensor([0.0, 0.0, 1.0]).expand(pad - npix, 3)])
+        t = torch.cat([tc.reshape(npix, 2)[perm_t],
+                       tc.new_zeros((pad - npix, 2))])
+        self._origin = origin
+        self._dirs = d.reshape(self._ntiles, self._tile, 3)
+        self._tc = t.reshape(self._ntiles, self._tile, 2)
+        self._integrator = get_integrator(config.integrator)
+        self.reset()
+
+    # -- accumulation protocol --------------------------------------------
+
+    def _passes(self, base_pass: int, n_passes: int):
+        """Accumulate passes base_pass .. base_pass + n_passes - 1, each over
+        every ray tile, in pass order. The accumulator is updated in place
+        (`add_`), so the order of the adds is the reference's."""
+        cfg = self.config
+        for k in range(n_passes):
+            for t in range(self._ntiles):
+                rgb = self._integrator(
+                    self.scene, self._origin, self._dirs[t], self._tc[t],
+                    base_pass + k, nb_bounces=cfg.nb_bounces,
+                    refract_ind=cfg.refract_ind, date=cfg.date,
+                    detach_sampling=cfg.detach_sampling,
+                    use_kernels=cfg.use_kernels,
+                    use_megakernel=cfg.use_megakernel)
+                self._acc[t].add_(rgb)
+
+    def reset(self):
+        """Camera move / slider / scene switch analog: clear the FBO and
+        pass counter (montecarlo.cpp:238-246)."""
+        self._acc = torch.zeros((self._ntiles, self._tile, 3),
+                                dtype=torch.float32, device=self.device)
+        self.nb_passes = 0
+
+    def render_pass(self):
+        """One progressive pass (paths_per_pass sub-passes, each with its
+        own pass index — montecarlo.cpp:454-466)."""
+        n = self.config.paths_per_pass
+        self._passes(self.nb_passes, n)
+        self.nb_passes += n
+
+    def advance(self, spp: int) -> None:
+        """Render up to spp passes in steps of passes_per_call (at least
+        paths_per_pass), WITHOUT resolving an image; waits for the device
+        before it returns. A "frame" of k paths is k consecutive pass
+        indices, so stepping is accumulation-identical to k single
+        passes."""
+        ppc = max(max(1, self.config.passes_per_call),
+                  max(1, self.config.paths_per_pass))
+        while self.nb_passes + ppc <= spp:
+            self._passes(self.nb_passes, ppc)
+            self.nb_passes += ppc
+        while self.nb_passes < spp:
+            self.render_pass()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, spp: int):
+        """advance(spp) + resolve: returns the [H, W, 3] image."""
+        self.advance(spp)
+        return self.image()
+
+    def resolve(self, acc=None, passes: int | None = None) -> np.ndarray:
+        """Resolve an accumulator into an image: undo the pixel-block
+        layout permutation, divide by the pass count (average.frag
+        analog). `acc` defaults to this renderer's accumulator."""
+        w, h = self.config.render_width, self.config.render_height
+        if passes is None:
+            passes = self.nb_passes
+        a = self._acc if acc is None else acc
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        a = np.asarray(a).reshape(-1, 3)[: self._npix]
+        a = a[self._inv_perm]              # undo the pixel-block layout
+        return (a / max(1, passes)).reshape(h, w, 3)
+
+    def image(self) -> np.ndarray:
+        """Resolve: accumulated sum / pass count (average.frag analog).
+        Returns [H, W, 3] float32, row 0 = bottom."""
+        return self.resolve()
+
+    def save_png(self, path: str):
+        write_png(path, self.image())
+
+    # -- checkpoint / resume ----------------------------------------------
+
+    def save_checkpoint(self, path: str):
+        np.savez_compressed(
+            path,
+            acc=self._acc.cpu().numpy(),
+            nb_passes=self.nb_passes,
+            config=json.dumps(asdict(self.config)),
+        )
+
+    def load_checkpoint(self, path: str):
+        """Resume from an .npz checkpoint. Configs are compared with
+        forward/backward compatibility: keys absent from the saved config
+        are filled with the field's DATACLASS default (not the current
+        run's value), and unknown saved keys are ignored. Any remaining
+        mismatch rejects, because every compared field affects the
+        accumulator layout or the accumulated radiance. Route and device
+        knobs (use_kernels/use_megakernel/cull_chunks/device) are exempt
+        with a warning: the kernel and its plain version agree to float
+        rounding, and nearest-first routes may pick a different, equally
+        close winner on exact distance ties."""
+        with np.load(path, allow_pickle=False) as z:
+            saved = json.loads(str(z["config"]))
+            acc = z["acc"]
+            nb_passes = int(z["nb_passes"])
+        current = asdict(self.config)
+        defaults = asdict(type(self.config)())
+        merged = {k: saved.get(k, defaults[k]) for k in current}
+        diff = {k: (merged[k], current[k]) for k in current
+                if merged[k] != current[k] and k not in _ROUTING_ONLY}
+        if diff:
+            raise ValueError(
+                f"checkpoint config mismatch (saved, current): {diff}")
+        route_diff = {k: (merged[k], current[k]) for k in _ROUTING_ONLY
+                      if merged[k] != current[k]}
+        if route_diff:
+            warnings.warn(
+                "resuming under a different engine route or device "
+                f"{route_diff}: radiance identical up to float rounding and "
+                "exact distance ties", stacklevel=2)
+        self._acc = torch.as_tensor(acc, device=self.device)
+        self.nb_passes = nb_passes
