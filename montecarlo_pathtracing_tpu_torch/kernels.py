@@ -2,15 +2,18 @@
 
 Each kernel source in csrc/ has a plain C interface. It is compiled by
 `nvcc` into a shared library under _build/ at first use, named by a hash
-of the source and the flags (a changed source builds anew), and loaded
-with ctypes. Nothing is built or loaded at import time, so the package
-imports on machines without nvcc or a GPU.
+of the source, every header it includes from csrc/ and the flags (a
+changed source or header builds anew), and loaded with ctypes. `build_all`
+starts one nvcc per source at once and waits for all of them. Nothing is
+built or loaded at import time, so the package imports on machines
+without nvcc or a GPU.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -24,6 +27,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
 _loaded: dict = {}
 
 
@@ -35,31 +40,64 @@ def nvcc() -> str:
     return path
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu (if its hash is new) and return the path of
-    the shared library. The compiler's report (registers, spills) is kept
-    beside it as <library>.log."""
-    src = os.path.join(CSRC, name + ".cu")
-    h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stdout}"
-                           f"{proc.stderr}")
-    with open(out + ".log", "w") as f:
-        f.write(f"built in {time.perf_counter() - t0:.1f} s\n")
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+def sources(name: str) -> list:
+    """csrc/<name>.cu and every csrc/ header it includes, transitively."""
+    out, todo = [], [name + ".cu"]
+    while todo:
+        path = os.path.join(CSRC, todo.pop())
+        if path in out:
+            continue
+        out.append(path)
+        with open(path, "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
     return out
+
+
+def library_path(name: str) -> str:
+    """Where the build of csrc/<name>.cu with its current sources and
+    flags lives."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def build_all(names) -> dict:
+    """Compile every csrc/<name>.cu whose hash is new, one nvcc process per
+    source, all started together. Returns {name: library path}. The
+    compiler's report (registers, spills) is kept beside each library as
+    <library>.log."""
+    paths = {name: library_path(name) for name in names}
+    jobs = []
+    for name, out in paths.items():
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        src = os.path.join(CSRC, name + ".cu")
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, out, tmp, proc, time.perf_counter()))
+    failed = []
+    for src, out, tmp, proc, t0 in jobs:
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{report}")
+            continue
+        with open(out + ".log", "w") as f:
+            f.write(f"built in {time.perf_counter() - t0:.1f} s\n{report}")
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def build(name: str) -> str:
+    """build_all of one source: the path of its shared library."""
+    return build_all([name])[name]
 
 
 def build_log(name: str) -> str:
@@ -80,4 +118,29 @@ def megakernel_lib() -> ctypes.CDLL:
         lib.mega_error_string.argtypes = [ctypes.c_int]
         lib.mega_error_string.restype = ctypes.c_char_p
         _loaded["megakernel"] = lib
+    return lib
+
+
+def bounce_kernel_lib() -> ctypes.CDLL:
+    """K2 (csrc/bounce_kernel.cu), built and loaded once per process."""
+    lib = _loaded.get("bounce_kernel")
+    if lib is None:
+        lib = ctypes.CDLL(build("bounce_kernel"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.fused_call.argtypes = [
+            p, p, i, ctypes.c_float,            # stf, sti, M, ior
+            p, i, p, i, p, i,                   # tab P, gsbb Sg, groups G
+            p, p, i,                            # msc, msi, n_mesh
+            p, i, p, i, p,                      # cbb Cm, sbb Sm, tpool
+            p, i, p, i, p,                      # acbb Ca, asbb Sa, apool
+            p, p, i,                            # agr, ana, A
+            p, p, i, i, i,                      # ord, ent, Stot, mesh_stot,
+                                                # sched_base
+            i, i, i, i,                         # whole_path, transparent,
+                                                # flat_face, cull_small
+            p, p]                               # counts, stream
+        lib.fused_call.restype = ctypes.c_int
+        lib.fused_error_string.argtypes = [ctypes.c_int]
+        lib.fused_error_string.restype = ctypes.c_char_p
+        _loaded["bounce_kernel"] = lib
     return lib

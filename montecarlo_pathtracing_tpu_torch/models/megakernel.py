@@ -195,27 +195,10 @@ def _slab(box, o, rd, dl, best, behind):
     return (tmax >= tmin) & (tmin * dl <= best)
 
 
-def _prim_work(code, col, o, d, win, gate):
-    """Test one prim column per ray and fold it into the winner `win`
-    (list of 14 tensors: best dist, N, P, shin, rough, emis, rgba).
-    col: [38, 1] (one prim for every ray) or [38, N] (one per ray)."""
-    iv, tf = col[0:12], col[12:24]
-    oi = (iv[0] * o[0] + iv[1] * o[1] + iv[2] * o[2] + iv[3],
-          iv[4] * o[0] + iv[5] * o[1] + iv[6] * o[2] + iv[7],
-          iv[8] * o[0] + iv[9] * o[1] + iv[10] * o[2] + iv[11])
-    di = _vnorm((iv[0] * d[0] + iv[1] * d[1] + iv[2] * d[2],
-                 iv[4] * d[0] + iv[5] * d[1] + iv[6] * d[2],
-                 iv[8] * d[0] + iv[9] * d[1] + iv[10] * d[2]), eps=1e-30)
-    a, valid, dircode = SOA_FNS[code](oi[0], oi[1], oi[2],
-                                      di[0], di[1], di[2])
-    plv = (oi[0] + a * di[0], oi[1] + a * di[1], oi[2] + a * di[2])
-    pg = (tf[0] * plv[0] + tf[1] * plv[1] + tf[2] * plv[2] + tf[3],
-          tf[4] * plv[0] + tf[5] * plv[1] + tf[6] * plv[2] + tf[7],
-          tf[8] * plv[0] + tf[9] * plv[1] + tf[10] * plv[2] + tf[11])
-    ex, ey, ez = o[0] - pg[0], o[1] - pg[1], o[2] - pg[2]
-    dist = torch.where(valid, torch.sqrt(ex * ex + ey * ey + ez * ez), _FMAX)
-
-    # shading normal (intersection_info, raytracer_func.frag:783-897)
+def _shading_normal(code, tf, plv, pg, dircode):
+    """World shading normal of a hit at local point plv, world point pg
+    (intersection_info, raytracer_func.frag:783-897): normalize(transfo @
+    point - pg) with the shape's local offset point."""
     if code == CODE_SPHERE:
         point = (2.0 * plv[0], 2.0 * plv[1], 2.0 * plv[2])
     elif code == CODE_CUBE:
@@ -249,6 +232,29 @@ def _prim_work(code, col, o, d, win, gate):
         # cone top-"cap" quirk: N = 0 (raytracer_func.frag:850-853)
         z = torch.zeros_like(nv[0])
         nv = _vwhere(dircode == 1, (z, z, z), nv)
+    return nv
+
+
+def _prim_work(code, col, o, d, win, gate):
+    """Test one prim column per ray and fold it into the winner `win`
+    (list of 14 tensors: best dist, N, P, shin, rough, emis, rgba).
+    col: [38, 1] (one prim for every ray) or [38, N] (one per ray)."""
+    iv, tf = col[0:12], col[12:24]
+    oi = (iv[0] * o[0] + iv[1] * o[1] + iv[2] * o[2] + iv[3],
+          iv[4] * o[0] + iv[5] * o[1] + iv[6] * o[2] + iv[7],
+          iv[8] * o[0] + iv[9] * o[1] + iv[10] * o[2] + iv[11])
+    di = _vnorm((iv[0] * d[0] + iv[1] * d[1] + iv[2] * d[2],
+                 iv[4] * d[0] + iv[5] * d[1] + iv[6] * d[2],
+                 iv[8] * d[0] + iv[9] * d[1] + iv[10] * d[2]), eps=1e-30)
+    a, valid, dircode = SOA_FNS[code](oi[0], oi[1], oi[2],
+                                      di[0], di[1], di[2])
+    plv = (oi[0] + a * di[0], oi[1] + a * di[1], oi[2] + a * di[2])
+    pg = (tf[0] * plv[0] + tf[1] * plv[1] + tf[2] * plv[2] + tf[3],
+          tf[4] * plv[0] + tf[5] * plv[1] + tf[6] * plv[2] + tf[7],
+          tf[8] * plv[0] + tf[9] * plv[1] + tf[10] * plv[2] + tf[11])
+    ex, ey, ez = o[0] - pg[0], o[1] - pg[1], o[2] - pg[2]
+    dist = torch.where(valid, torch.sqrt(ex * ex + ey * ey + ez * ez), _FMAX)
+    nv = _shading_normal(code, tf, plv, pg, dircode)
 
     # a group-padding column (ok = 0) never wins
     take = (col[31] > 0.0) & (dist < win[0])
@@ -260,22 +266,31 @@ def _prim_work(code, col, o, d, win, gate):
         win[k] = torch.where(take, x, win[k])
 
 
-def _trace_fold(inp, ordr_ray, o, d, n_prev, p_prev):
-    """Fold every analytic prim into per-ray winner attributes. Returns
-    (is_hit, N, P, shin, rough, emis, col3, alpha); on a miss N, P keep
-    (n_prev, p_prev), the GLSL stale-output semantics that the refraction
-    re-trace relies on (tp/montecarlo.frag:150-152)."""
+def _new_win(o, n_prev, p_prev):
+    """The winner before any hit: best distance FLT_MAX, N and P the
+    stale (n_prev, p_prev), no material, alpha 1."""
     z = torch.zeros_like(o[0])
-    win = [z + _FMAX, z + n_prev[0], z + n_prev[1], z + n_prev[2],
-           z + p_prev[0], z + p_prev[1], z + p_prev[2],
-           z, z, z, z, z, z, z + 1.0]
-    tab = inp.tab
-    if inp.cull:
+    return [z + _FMAX, z + n_prev[0], z + n_prev[1], z + n_prev[2],
+            z + p_prev[0], z + p_prev[1], z + p_prev[2],
+            z, z, z, z, z, z, z + 1.0]
+
+
+def _win_result(win):
+    """(is_hit, N, P, shin, rough, emis, col3, alpha) of a winner list."""
+    return (win[0] < _FMAX, tuple(win[1:4]), tuple(win[4:7]),
+            win[7], win[8], win[9], tuple(win[10:13]), win[13])
+
+
+def _fold_table(tab, sbb, groups, cull, ordr_ray, o, d, win):
+    """Fold every prim of a [38, P] table into the winner list `win`.
+    With cull, ordr_ray [N, S] is each ray's row of the super visit
+    order."""
+    if cull:
         rd = (_safe_rcp(d[0]), _safe_rcp(d[1]), _safe_rcp(d[2]))
         dl = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
-    for code, start, count, sstart in inp.groups:
+    for code, start, count, sstart in groups:
         behind = code in HITS_BEHIND
-        if not inp.cull:
+        if not cull:
             for c in range(start, start + count):
                 _prim_work(code, tab[:, c:c + 1], o, d, win, None)
             continue
@@ -283,7 +298,7 @@ def _trace_fold(inp, ordr_ray, o, d, n_prev, p_prev):
         # supers visited in the tile's nearest-first order
         for spi in range(-(-count // MEGA_SUPER)):
             sp = ordr_ray[:, sstart + spi]
-            shit = _slab(inp.sbb[:, sstart + sp], o, rd, dl, win[0], behind)
+            shit = _slab(sbb[:, sstart + sp], o, rd, dl, win[0], behind)
             for j in range(MEGA_SUPER):
                 # the clamp re-tests the group's last prim at the edge;
                 # an equal candidate never replaces the winner
@@ -291,8 +306,16 @@ def _trace_fold(inp, ordr_ray, o, d, n_prev, p_prev):
                 col = tab[:, c]
                 gate = shit & _slab(col[32:38], o, rd, dl, win[0], behind)
                 _prim_work(code, col, o, d, win, gate)
-    return (win[0] < _FMAX, tuple(win[1:4]), tuple(win[4:7]),
-            win[7], win[8], win[9], tuple(win[10:13]), win[13])
+
+
+def _trace_fold(inp, ordr_ray, o, d, n_prev, p_prev):
+    """Fold every analytic prim into per-ray winner attributes. Returns
+    (is_hit, N, P, shin, rough, emis, col3, alpha); on a miss N, P keep
+    (n_prev, p_prev), the GLSL stale-output semantics that the refraction
+    re-trace relies on (tp/montecarlo.frag:150-152)."""
+    win = _new_win(o, n_prev, p_prev)
+    _fold_table(inp.tab, inp.sbb, inp.groups, inp.cull, ordr_ray, o, d, win)
+    return _win_result(win)
 
 
 def _bounce_step(trace_fn, has_transparent, ior,
@@ -407,10 +430,12 @@ def _bounce_step(trace_fn, has_transparent, ior,
 # one pass: plain version, kernel wrapper, route
 # --------------------------------------------------------------------------
 
-def mega_pass_reference(inp: MegaInputs, seed: int,
-                        nb_bounces: int) -> torch.Tensor:
+def mega_pass_reference(inp: MegaInputs, seed: int, nb_bounces: int,
+                        alive=None) -> torch.Tensor:
     """Plain PyTorch version of K1 (reference `_mega_kernel`,
-    megakernel.py:541-582) on any device. Returns rgb [n, 3]."""
+    megakernel.py:541-582) on any device. Returns rgb [n, 3]. `alive`, a
+    list if given, gets the number of real rays still in flight at the
+    start of each bounce appended (a device sync each)."""
     d = (inp.dirs[:, 0], inp.dirs[:, 1], inp.dirs[:, 2])
     z = torch.zeros_like(d[0])
     o = (z + inp.fpar[0], z + inp.fpar[1], z + inp.fpar[2])
@@ -431,6 +456,8 @@ def mega_pass_reference(inp: MegaInputs, seed: int,
     result = (z, z, z)
     done = torch.zeros_like(d[0], dtype=torch.bool)
     for _ in range(nb_bounces):
+        if alive is not None:
+            alive.append(int((~done[:inp.n]).sum()))
         o, d, attenu, total, result, done, state = _bounce_step(
             trace_fn, inp.has_transparent, ior,
             o, d, attenu, total, result, done, state)
@@ -521,27 +548,32 @@ def mega_eligible(scene) -> bool:
     return 0 < total <= MEGA_MAX_PRIMS
 
 
-def _mega_meta(scene):
+def _mega_meta(scene, group_ids=None):
     """Static ((code, start, count, super_start), ...) over the scene's
-    typed groups, and the table width; super_start indexes the per-group
-    16-prim super-box table (`_mega_super_boxes`)."""
+    typed groups (or those of `group_ids`), and the table width;
+    super_start indexes the per-group 16-prim super-box table
+    (`_mega_super_boxes`)."""
+    if group_ids is None:
+        group_ids = range(len(scene.group_codes))
     groups = []
     start = 0
     sstart = 0
-    for gi, code in enumerate(scene.group_codes):
+    for gi in group_ids:
         count = int(scene.group_prim[gi].shape[0])
-        groups.append((int(code), start, count, sstart))
+        groups.append((int(scene.group_codes[gi]), start, count, sstart))
         start += count
         sstart += -(-count // MEGA_SUPER)
     return tuple(groups), start
 
 
-def _mega_super_boxes(scene):
+def _mega_super_boxes(scene, group_ids=None):
     """[6, n_supers] world AABBs over MEGA_SUPER-prim windows of each
-    (Morton-ordered) group — the outer level of the cull. Padding prims
-    contribute empty boxes."""
+    (Morton-ordered) group of `group_ids` (default: all) — the outer
+    level of the cull. Padding prims contribute empty boxes."""
+    if group_ids is None:
+        group_ids = range(len(scene.group_codes))
     cols = []
-    for gi in range(len(scene.group_codes)):
+    for gi in group_ids:
         pid = scene.group_prim[gi].long()
         ok = (pid >= 0)[:, None]
         bmn = torch.where(ok, scene.prim_bb_min[pid], _SENTINEL)
@@ -576,13 +608,16 @@ def _mega_super_order(d_rows, o3, sbb, groups):
     return torch.cat(cols, dim=1).to(torch.int32)[:, None, :].contiguous()
 
 
-def _mega_table(scene):
-    """[38, P] f32 prim-scalar table. Rows 0-11 inverse affine, 12-23
-    forward affine, 24 shin, 25 rough, 26 emis, 27-30 rgba, 31 ok
-    (0 = group-padding column, never hit), 32-34 world AABB min, 35-37
-    max (empty box for padding); materials per GLOBAL prim id."""
+def _mega_table(scene, group_ids=None):
+    """[38, P] f32 prim-scalar table over the groups of `group_ids`
+    (default: all). Rows 0-11 inverse affine, 12-23 forward affine, 24
+    shin, 25 rough, 26 emis, 27-30 rgba, 31 ok (0 = group-padding column,
+    never hit), 32-34 world AABB min, 35-37 max (empty box for padding);
+    materials per GLOBAL prim id."""
+    if group_ids is None:
+        group_ids = range(len(scene.group_codes))
     cols = []
-    for gi in range(len(scene.group_codes)):
+    for gi in group_ids:
         pid = scene.group_prim[gi].long()
         inv = scene.group_inv[gi][:, :3, :4].reshape(-1, 12)
         trf = scene.group_transfo[gi][:, :3, :4].reshape(-1, 12)

@@ -123,7 +123,7 @@ def default_rt_camera(width: int, height: int,
 
 
 def camera_rays(proj: np.ndarray, view: np.ndarray, width: int, height: int,
-                device="cpu"):
+                device="cuda"):
     """Per-pixel primary rays (raytracer.vert semantics, evaluated densely).
 
     Returns (origin [3], dirs [H, W, 3], screen_tc [H, W, 2]) as float32

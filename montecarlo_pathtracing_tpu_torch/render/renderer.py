@@ -37,7 +37,8 @@ class RenderConfig:
     package's `use_pallas` is `use_kernels` here, and defaults to True
     because the kernel routes are the ported ones (the dense route is
     ROADMAP item A.7); `device` names the torch device the render runs
-    on and must match the scene's."""
+    on and must match the scene's. It is the card unless the caller
+    names the CPU: nothing falls back to the CPU when no card is found."""
     width: int = 1280
     height: int = 1000
     nb_bounces: int = 3          # slider 0-9
@@ -60,7 +61,7 @@ class RenderConfig:
     passes_per_call: int = 8     # passes folded into one advance step
     shard_devices: int = 0       # >1: shard rays over devices (A.13)
     tile_rays: int = 1 << 16
-    device: str = "cpu"
+    device: str = "cuda"
 
     @property
     def render_width(self) -> int:
@@ -234,6 +235,9 @@ class Renderer:
             nb_passes = int(z["nb_passes"])
         current = asdict(self.config)
         defaults = asdict(type(self.config)())
+        # a checkpoint that names no device (the JAX package's) says
+        # nothing about one: it resumes on this renderer's without a warning
+        defaults["device"] = current["device"]
         merged = {k: saved.get(k, defaults[k]) for k in current}
         diff = {k: (merged[k], current[k]) for k in current
                 if merged[k] != current[k] and k not in _ROUTING_ONLY}

@@ -14,7 +14,8 @@ fields, layouts and static metadata as the JAX `DeviceScene`:
     and analytic pools, and Morton chunk/super AABB tables
 
 Everything is computed in numpy; the last step moves each array to the
-requested device with `torch.as_tensor`. `from_jax_scene` takes the JAX
+requested device with `torch.as_tensor`. The device is the card ("cuda")
+unless the caller names another. `from_jax_scene` takes the JAX
 package's compiled scene (as numpy arrays) to the same dataclass, so a
 scene compiled by the reference can be carried across unchanged.
 """
@@ -149,7 +150,7 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.as_tensor(a, device=device)
 
 
-def from_numpy(fields: dict, device="cpu") -> DeviceScene:
+def from_numpy(fields: dict, device="cuda") -> DeviceScene:
     """Build a DeviceScene from numpy arrays (tuples of arrays for the
     group fields) and the static metadata, moving every array to
     `device`."""
@@ -165,7 +166,7 @@ def from_numpy(fields: dict, device="cpu") -> DeviceScene:
     return DeviceScene(**kw)
 
 
-def from_jax_scene(fields: dict, device="cpu") -> DeviceScene:
+def from_jax_scene(fields: dict, device="cuda") -> DeviceScene:
     """The JAX package's compiled DeviceScene, given as a dict of its
     fields with every array converted to numpy (tuples of arrays for the
     group fields) plus its static metadata, as this package's
@@ -186,8 +187,9 @@ def from_jax_scene(fields: dict, device="cpu") -> DeviceScene:
 
 def compile_scene(scene: ScenePrimitives, *, analytic_chunk: int = 64,
                   tri_chunk: int = 256, flat_face: bool = False,
-                  device="cpu") -> DeviceScene:
-    """finalize() analog: emissive sort -> dense arrays on `device`."""
+                  device="cuda") -> DeviceScene:
+    """finalize() analog: emissive sort -> dense arrays on `device` (the
+    card unless the caller names the CPU)."""
     nb_emissives = scene.sort_emissive_first()
     n = scene.nb
     if n == 0:

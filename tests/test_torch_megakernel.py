@@ -54,8 +54,10 @@ def _scenes(name):
     """(JAX DeviceScene, port DeviceScene) of the same prims."""
     if name == "all_shapes":
         return (jcompile(all_shapes_scene(jscene_mod, jtf)),
-                compile_scene(all_shapes_scene(scene_mod, transforms)))
-    return jcompile(jscenes.build(name)), compile_scene(scenes.build(name))
+                compile_scene(all_shapes_scene(scene_mod, transforms),
+                              device="cpu"))
+    return (jcompile(jscenes.build(name)),
+            compile_scene(scenes.build(name), device="cpu"))
 
 
 def _rays(w, h):
@@ -169,7 +171,9 @@ def test_k1_wrapper_refuses_cpu_tensors():
 
 def test_routing():
     """use_kernels on an eligible analytic scene goes to the megakernel;
-    mesh scenes are not eligible; unported routes raise."""
+    mesh scenes are not eligible; unported routes raise (box_diffuse with
+    the megakernel off is not fused-eligible either, so it falls through
+    to the pallas-trace route)."""
     _, dev = _scenes("box_diffuse")
     o, d, tc = (torch.as_tensor(a) for a in _rays(16, 8))
     via_route = raytrace(dev, o, d, tc, 1, nb_bounces=3, refract_ind=1.0,
@@ -177,10 +181,11 @@ def test_routing():
     direct = mk.raytrace_mega(dev, o, d, tc, 1, nb_bounces=3,
                               refract_ind=1.0)
     np.testing.assert_array_equal(via_route.numpy(), direct.numpy())
-    assert not mk.mega_eligible(compile_scene(scenes.build("mesh_demo")))
+    assert not mk.mega_eligible(compile_scene(scenes.build("mesh_demo"),
+                                              device="cpu"))
     with pytest.raises(NotImplementedError, match="A.7"):
         raytrace(dev, o, d, tc, 1, nb_bounces=3, refract_ind=1.0)
-    with pytest.raises(NotImplementedError, match="A.8"):
+    with pytest.raises(NotImplementedError, match="A.9"):
         raytrace(dev, o, d, tc, 1, nb_bounces=3, refract_ind=1.0,
                  use_kernels=True, use_megakernel=False)
 
@@ -198,7 +203,7 @@ def test_pad_columns_never_hit():
                     mod.Material((0.2, 0.9, 0.2, 1.0)))
         return sc
 
-    dev = compile_scene(build(scene_mod, transforms))
+    dev = compile_scene(build(scene_mod, transforms), device="cpu")
     jdev = jcompile(build(jscene_mod, jtf))
     groups, total = mk._mega_meta(dev)
     assert total > dev.nb_prims, "fixture must actually have pad columns"

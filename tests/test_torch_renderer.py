@@ -38,8 +38,10 @@ def _one_cpu_thread():
 
 
 def _port(**kw):
-    cfg = RenderConfig(width=SIZE, height=SIZE, nb_bounces=BOUNCES, **kw)
-    return Renderer(compile_scene(scenes.build("box_diffuse")), cfg)
+    cfg = RenderConfig(width=SIZE, height=SIZE, nb_bounces=BOUNCES,
+                       device="cpu", **kw)
+    return Renderer(compile_scene(scenes.build("box_diffuse"), device="cpu"),
+                    cfg)
 
 
 @pytest.fixture(scope="module")
@@ -90,8 +92,9 @@ def test_checkpoint_round_trip(tmp_path, jax_renderer):
 
     # a radiance-changing knob rejects; a route/device knob warns
     with pytest.raises(ValueError, match="nb_bounces"):
-        Renderer(compile_scene(scenes.build("box_diffuse")),
-                 RenderConfig(width=SIZE, height=SIZE, nb_bounces=5)
+        Renderer(compile_scene(scenes.build("box_diffuse"), device="cpu"),
+                 RenderConfig(width=SIZE, height=SIZE, nb_bounces=5,
+                              device="cpu")
                  ).load_checkpoint(str(tmp_path / "ck.npz"))
     with pytest.warns(UserWarning, match="route"):
         _port(use_megakernel=True).load_checkpoint(str(tmp_path / "ck.npz"))
@@ -123,5 +126,5 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A.10"):
         _port(integrator="montecarlo_aos")
     with pytest.raises(ValueError, match="scene is on"):
-        Renderer(compile_scene(scenes.build("box_diffuse")),
+        Renderer(compile_scene(scenes.build("box_diffuse"), device="cpu"),
                  RenderConfig(width=8, height=8, device="meta"))
