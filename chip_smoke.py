@@ -1,15 +1,16 @@
 """GPU smoke of the PyTorch/CUDA port: build every kernel, hold each one
-against its plain PyTorch version, and drive both ported paths once.
+against its plain PyTorch version, and drive every ported path once.
 
     python3 chip_smoke.py
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
-and prints no result, without them. Phases (about 4 minutes in all on an
+and prints no result, without them. Phases (about 7 minutes in all on an
 H100, the builds included):
 
-1. the card's name and power limit; build K1 (csrc/megakernel.cu) and K2
-   (csrc/bounce_kernel.cu), one nvcc each, started together, and print
-   both compile reports (registers, spills);
+1. the card's name and power limit; build K1 (csrc/megakernel.cu), K2
+   (csrc/bounce_kernel.cu) and the trace kernels K3a, K4a, K5, K6
+   (csrc/trace_kernels.cu), one nvcc each, started together, and print
+   the compile reports (registers, spills);
 2. K1 against its plain version (models/megakernel.mega_pass_reference)
    on the card, 64x48 pixels, 4 bounces, passes 0 and 3, under the
    megakernel protocol (testing/parity.py), on box_diffuse (cull off,
@@ -39,7 +40,35 @@ H100, the builds included):
    counters and bound; a 2-pass accumulation of K2 against the plain
    version's at full size; rays/s;
 6. a short window of K2's whole-path mode: stress_10k at 800x600, 3
-   bounces.
+   bounces;
+7. each trace kernel against its plain version on the card under the
+   trace protocol (testing/parity.py): K3a on a random 200-prim group of
+   each shape code (2048 rays); K5 and K3a on colonnes' two large groups,
+   K6 and K4a on each mesh_demo instance (one 1<<17 ray tile each) and on
+   mesh_hires's 796-chunk sphere (8192 rays); and K5 against K3a, K6
+   against K4a on the same rays (tests/test_sparse_trace.py:27-54);
+8. the pallas-trace route (models.montecarlo.raytrace with the
+   megakernel and the fused route off) with the kernels against the
+   route with their plain versions, 64x48, 4 bounces, passes 0 and 3, on
+   colonnes and mesh_demo, under the fused protocol; nb_bounces=0 ->
+   black;
+9. the route's two full-size paths through compile_scene and
+   Renderer.advance with RenderConfig(use_megakernel=False), tile_rays
+   1<<17: mesh_demo at 800x600, 8 bounces (BASELINE config 3; 192 K6
+   launches per pass) over a 2-pass window, and colonnes at 1920x1080, 6
+   bounces, light 0.4 (BASELINE config 5; 384 K5 launches per pass) over
+   a 1-pass window: the launch counts, the image, rays/s, one tile call's
+   wall time, device busy time and idle share (torch.profiler), the
+   kernel's time per launch, per pass and by bounce (CUDA events), its
+   work counters and bound, and 8 of its full-size launches against the
+   plain version;
+10. one pass of each path at 800x600 with cull_chunks=False: K4a and K3a
+   launch counts, the image against the culled route's under the fused
+   protocol, and K4a's and K3a's times, bounds and plain versions as in
+   phase 9;
+11. the trace kernels built with FMA contraction (without kernels.
+   EXTRA_FLAGS' -fmad=false) against the default build, on the recorded
+   launches of phases 9 and 10: time per launch and the distances' move.
 
 The last three lines are a {"kernels": [...]} JSON object, the card's
 name and power limit, and the {"ok": true, "device": {...}} JSON object.
@@ -47,6 +76,7 @@ Every check raises, so any failed phase exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -58,6 +88,10 @@ import torch
 from montecarlo_pathtracing_tpu_torch import kernels
 from montecarlo_pathtracing_tpu_torch.models import bounce_kernel as bk
 from montecarlo_pathtracing_tpu_torch.models import megakernel as mk
+from montecarlo_pathtracing_tpu_torch.models.montecarlo import raytrace
+from montecarlo_pathtracing_tpu_torch.ops import pallas_trace as ptk
+from montecarlo_pathtracing_tpu_torch.ops import sparse_trace as spk
+from montecarlo_pathtracing_tpu_torch.ops import trace as trace_mod
 from montecarlo_pathtracing_tpu_torch.ops.rng import seed_y
 from montecarlo_pathtracing_tpu_torch.ops.sort_rays import ray_sort_key
 from montecarlo_pathtracing_tpu_torch.render.camera import (
@@ -70,14 +104,35 @@ from montecarlo_pathtracing_tpu_torch.scene import scenes
 from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
 from montecarlo_pathtracing_tpu_torch.testing.parity import (
     FUSED_FRAC, FUSED_FRAC_STRESS, all_shapes_scene, assert_fused_protocol,
-    assert_megakernel_protocol, cull_mesh_scene, fused_match,
-    megakernel_match, opaque_mesh_scene)
+    assert_megakernel_protocol, assert_trace_protocol, cull_mesh_scene,
+    fused_match, megakernel_match, opaque_mesh_scene, random_group,
+    random_rays, trace_match)
 from montecarlo_pathtracing_tpu_torch.utils import transforms
 
 K1_SOURCE = "montecarlo_pathtracing_tpu_torch/csrc/megakernel.cu"
 K1_REPLACES = "montecarlo_pathtracing_tpu/models/megakernel.py:541"
 K2_SOURCE = "montecarlo_pathtracing_tpu_torch/csrc/bounce_kernel.cu"
 K2_REPLACES = "montecarlo_pathtracing_tpu/models/bounce_kernel.py:776"
+TRACE_SOURCE = "montecarlo_pathtracing_tpu_torch/csrc/trace_kernels.cu"
+# the trace kernels: (name in the kernels line, TPU kernel replaced, the
+# CUDA kernel's name in a profile)
+TRACE_KERNELS = {
+    "K3a": ("K3a group_kernel",
+            "montecarlo_pathtracing_tpu/ops/pallas_trace.py:162",
+            "group_kernel"),
+    "K4a": ("K4a tri_kernel",
+            "montecarlo_pathtracing_tpu/ops/pallas_trace.py:497",
+            "tri_kernel"),
+    "K5": ("K5 an_walk", "montecarlo_pathtracing_tpu/ops/sparse_trace.py:139",
+           "an_walk"),
+    "K6": ("K6 mesh_walk",
+           "montecarlo_pathtracing_tpu/ops/sparse_trace.py:374",
+           "mesh_walk"),
+}
+# each trace kernel's wrapper, which counts its launches
+TRACE_WRAPPERS = {"K3a": ptk.group_best_rows, "K4a": ptk.mesh_best_rows,
+                  "K5": spk.group_best_rows_sparse,
+                  "K6": spk.mesh_best_rows_sparse}
 
 PARITY_CASES = (("box_diffuse", 1.0), ("box_balls", 1.3), ("materials", 1.5),
                 ("all_shapes", 1.3))
@@ -90,15 +145,22 @@ K2_CASES = (("mesh_demo", 1.3, FUSED_FRAC), ("flat_mesh", 1.0, FUSED_FRAC),
 # tensor cores, and HBM3 bandwidth
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-# FP32 operations, counted from the kernels' source (common.cuh
-# prim_work, bounce_step; bounce_kernel.cu fold_tris, slab_cap), of one
-# ray's test of one prim by shape code (local frame, shape test, and the
+# FP32 operations (a multiply, add, divide or square root each; an FMA
+# two), counted from the kernels' source (common.cuh prim_work,
+# bounce_step, mt_hit; bounce_kernel.cu slab_cap), of one ray's test of
+# one prim by shape code in K1 and K2 (local frame, shape test, and the
 # hit point and normal where it hits), one bounce step's shading, one
 # Moller-Trumbore test and one slab test
 PRIM_OPS = {1: 70, 2: 130, 3: 110, 4: 120, 5: 60}
 SHADE_OPS = 150
-TRI_OPS = 60
+TRI_OPS = 51
 BOX_OPS = 25
+# the trace kernels' ray-prim test (csrc/trace_kernels.cu prim_hit): the
+# local frame (affine, linear, vnorm) and the shape test for every test,
+# the hit point and world distance only where the shape test passes
+FRAME_OPS = 42
+SHAPE_OPS = {1: 24, 2: 36, 3: 36, 4: 44, 5: 5}
+HIT_OPS = 33
 
 
 def card() -> str:
@@ -183,16 +245,16 @@ def _time_passes(fn, n_passes):
     return start.elapsed_time(end) / n_passes
 
 
-def _device_seconds(fn, kernel_name):
+def _device_seconds(fn, kernel_name, cpu=True):
     """(device-busy s, the named kernel's share of it in s) of fn() under
     torch.profiler: the sum of the CUDA kernel and copy events, which run
     on one stream and so do not overlap. (0, 0) when the profiler sees no
-    device activity."""
+    device activity. cpu=False traces the device only (cheaper)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         fn()
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev) / 1e6
@@ -526,6 +588,568 @@ def phase_k2_whole_path(device, w=800, h=600, bounces=3, window=4,
           f"the chunk folds {_lane_share(work)}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# the pallas-trace route: K3a, K4a, K5, K6
+# --------------------------------------------------------------------------
+
+def _reset_counts():
+    """Every kernel's launch count to 0."""
+    mk.k1_launch.launches = 0
+    bk.k2_launch.launches = 0
+    for wrapper in TRACE_WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def _all_counts():
+    out = {"K1": mk.k1_launch.launches, "K2": bk.k2_launch.launches}
+    out.update({k: w.launches for k, w in TRACE_WRAPPERS.items()})
+    return out
+
+
+@contextlib.contextmanager
+def plain_trace_kernels():
+    """Within the block, the pallas-trace route (ops/trace.trace_soa) runs
+    the trace kernels' plain versions on the card instead of the
+    kernels."""
+    def k3a(o, d, code, inv_r, trf_r, pid, cbb=None):
+        if cbb is not None:
+            raise NotImplementedError("K3b is not ported")
+        return ptk.group_best_rows_plain(o, d, code, inv_r, trf_r, pid)
+
+    def k4a(o, d, tri, cbb=None, sbb=None):
+        if cbb is not None or sbb is not None:
+            raise NotImplementedError("K4b is not ported")
+        return ptk.mesh_best_rows_plain(o, d, tri)
+
+    def k5(o, d, code, inv_r, trf_r, pid, sup_bb):
+        return spk.an_fold_plain(
+            o, d, *spk.an_inputs(o, d, inv_r, trf_r, pid, sup_bb), code)
+
+    def k6(o, d, tri, cbb):
+        return spk.mesh_fold_plain(o, d, tri, *spk.mesh_inputs(o, d, tri, cbb))
+
+    plain = {"group_best_rows": k3a, "mesh_best_rows": k4a,
+             "group_best_rows_sparse": k5, "mesh_best_rows_sparse": k6}
+    saved = {name: getattr(trace_mod, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(trace_mod, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(trace_mod, name, fn)
+
+
+# where each trace kernel is launched from: (module, function); K5 and K6
+# by their launch functions, so that a recorded call holds the kernel's
+# own inputs (the ranked schedule and bounds included)
+_LAUNCH_SITES = {"K3a": (trace_mod, "group_best_rows"),
+                 "K4a": (trace_mod, "mesh_best_rows"),
+                 "K5": (spk, "an_fold"), "K6": (spk, "mesh_fold")}
+
+
+def _plain_of(kid, args):
+    """The plain version of recorded launch args of kernel kid."""
+    if kid == "K3a":
+        return ptk.group_best_rows_plain(*args[:6])
+    if kid == "K4a":
+        return ptk.mesh_best_rows_plain(*args[:3])
+    if kid == "K5":
+        return spk.an_fold_plain(*args[:7])
+    return spk.mesh_fold_plain(*args[:6])
+
+
+@contextlib.contextmanager
+def record_launches(kid, rec):
+    """Within the block, every launch of trace kernel kid on the route is
+    appended to rec as (launch function, args, keywords), then run."""
+    mod, name = _LAUNCH_SITES[kid]
+    real = getattr(mod, name)
+
+    def recording(*args, **kw):
+        rec.append((real, args, {k: v for k, v in kw.items() if k != "work"}))
+        return real(*args, **kw)
+
+    setattr(mod, name, recording)
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def _needed(kid, args, out, work):
+    """The work one launch's function needs on its inputs, as int64
+    device scalars (tests, hits): the tests that cost FRAME_OPS plus
+    SHAPE_OPS (K3a, K5) or TRI_OPS each (K4a, K6), and the hits that cost
+    HIT_OPS more (K3a, K5). A brute fold (K3a, K4a) tests every ray
+    against every real prim or triangle; K3a's hits are its counted
+    shape-test passes, the same for any order of that fold. A walk (K5,
+    K6) must fold, for each ray, every block or chunk of its tile's ranked
+    list whose entry bound lies below the ray's final min(best, bound):
+    any of them could hold a closer hit. K5's hits are counted once per
+    ray with a winner, the least any fold needs. `out` is the launch's
+    result, `work` its counters."""
+    o = args[0]
+    zero = torch.zeros((), dtype=torch.int64, device=o.device)
+    if kid == "K3a":
+        return work[0], work[2]
+    if kid == "K4a":
+        tri = args[2]
+        return o.shape[1] * (tri != 0).any(dim=0).sum(), zero
+    if kid == "K5":
+        tab, order, tlo_sorted, bound = args[2:6]
+        per_unit = (tab[:, 24, :] > 0).sum(dim=1)
+        best, tile = out[0], spk.AN_TILE
+    else:
+        tri, order, tlo_sorted, bound = args[2:6]
+        per_unit = (tri != 0).any(dim=0).reshape(-1, ptk.PRIM_CHUNK).sum(dim=1)
+        best, tile = out[0], spk.MESH_TILE
+    nt = order.shape[0]
+    thr = torch.minimum(best, bound).reshape(nt, tile).contiguous()
+    reach = (tlo_sorted < spk.INF).sum(dim=1, keepdim=True)
+    need = torch.minimum(torch.searchsorted(tlo_sorted, thr), reach)
+    cum = torch.cat([torch.zeros((nt, 1), dtype=torch.int64, device=o.device),
+                     per_unit[order.long()].cumsum(dim=1)], dim=1)
+    tests = cum.gather(1, need).sum()
+    return tests, ((out[1] >= 0).sum() if kid == "K5" else zero)
+
+
+def _needed_ops(kid, args, tests, hits):
+    """FP32 operations of `tests` tests and `hits` hits of kernel kid's
+    recorded launch."""
+    if kid in ("K4a", "K6"):
+        return TRI_OPS * tests
+    code = args[2] if kid == "K3a" else args[6]
+    return (FRAME_OPS + SHAPE_OPS[code]) * tests + HIT_OPS * hits
+
+
+def _launch_bytes(kid, args):
+    """Bytes one launch must move: every tensor input read once, the
+    outputs (4 rows for K3a and K5, 2 for K4a and K6) written once."""
+    m = args[0].shape[1]
+    ins = sum(a.numel() * a.element_size() for a in args
+              if isinstance(a, torch.Tensor))
+    return ins + (16 if kid in ("K3a", "K5") else 8) * m
+
+
+def _time_recorded(kid, rec, reps=2):
+    """Kernel kid over the recorded launches of one pass, by CUDA events
+    around each launch: (ms of each launch, averaged over reps; the
+    launch's work counters [tests, chunks or blocks visited, hits]; the
+    work its function needs [tests, hits], see _needed)."""
+    dev = rec[0][1][0].device
+    work = torch.zeros((len(rec), 3), dtype=torch.int64, device=dev)
+    needed = torch.zeros((len(rec), 2), dtype=torch.int64, device=dev)
+    events = []
+    for rep in range(reps):
+        for i, (real, args, kw) in enumerate(rec):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = real(*args, **kw, work=work[i] if rep == 0 else None)
+            e1.record()
+            events.append((e0, e1))
+            if rep == 0:                    # after e1: not timed
+                needed[i] = torch.stack(_needed(kid, args, out, work[i]))
+    torch.cuda.synchronize()
+    ms = np.array([e0.elapsed_time(e1) for e0, e1 in events])
+    return (ms.reshape(reps, len(rec)).mean(axis=0), work.cpu().numpy(),
+            needed.cpu().numpy())
+
+
+def _plain_vs_kernel(kid, rec, n=8):
+    """Kernel kid against its plain version on a subset of n recorded
+    full-size launches (every k-th of the pass): both outputs under the
+    trace protocol, and each side's mean ms per launch by CUDA events.
+    Returns (plain ms, kernel ms on the same launches, max abs error)."""
+    sub = rec[::max(1, len(rec) // n)]
+    plain_ms, kern_ms, err = [], [], 0.0
+    for real, args, kw in sub:
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        e[0].record()
+        got = real(*args, **kw)
+        e[1].record()
+        e[2].record()
+        ref = _plain_of(kid, args)
+        e[3].record()
+        torch.cuda.synchronize()
+        kern_ms.append(e[0].elapsed_time(e[1]))
+        plain_ms.append(e[2].elapsed_time(e[3]))
+        ref2 = (ref[0].cpu().numpy(), ref[1].cpu().numpy())
+        got2 = (got[0].cpu().numpy(), got[1].cpu().numpy())
+        assert_trace_protocol(ref2, got2, f"{kid} full-size launch vs plain")
+        err = max(err, trace_match(*ref2, *got2)[3])
+    print(f"{kid} full size vs plain on {len(sub)} launches of the pass: "
+          f"plain {np.mean(plain_ms):.3f} ms per launch, {kid} "
+          f"{np.mean(kern_ms):.4f} ms on the same launches; max abs err "
+          f"{err:.3e}", flush=True)
+    return float(np.mean(plain_ms)), float(np.mean(kern_ms)), err
+
+
+def _check_trace(what, ref, got):
+    """Hold (dist, row) of two folds to the trace protocol; print and
+    return the max abs distance error."""
+    ref = (ref[0].cpu().numpy(), ref[1].cpu().numpy())
+    got = (got[0].cpu().numpy(), got[1].cpu().numpy())
+    frac, bad, rel, err = trace_match(*ref, *got)
+    print(f"{what}: rows equal {frac:.5f}, differing rows without equal "
+          f"distance {bad}, max rel err {rel:.2e}, max abs err {err:.3e}, "
+          f"hits {(ref[1] >= 0).mean():.4f}", flush=True)
+    assert_trace_protocol(ref, got, what)
+    return err
+
+
+def _mixed_rays(dev, w, h, m, seed):
+    """m world rays [3, m]: the first half primaries of a w x h camera
+    (scanline order), the second half random rays (uniform origins in the
+    scene's box, random unit directions); directions unit."""
+    proj, view = default_rt_camera(w, h)
+    o, d, _ = camera_rays(proj, view, w, h, device=dev.device)
+    half = m // 2
+    dp = d.reshape(-1, 3)[:half]
+    dp = (dp / torch.linalg.vector_norm(dp, dim=-1, keepdim=True)).T
+    lo = dev.prim_bb_min.amin(dim=0).cpu().numpy()
+    hi = dev.prim_bb_max.amax(dim=0).cpu().numpy()
+    ro, rd = random_rays(m - half, seed)
+    ro = lo[:, None] + (ro + 80.0) / 160.0 * (hi - lo)[:, None]
+    o_rows = torch.cat([o.reshape(3, 1).expand(3, half).to(torch.float32),
+                        torch.as_tensor(ro, device=dev.device)], dim=1)
+    d_rows = torch.cat([dp, torch.as_tensor(rd, device=dev.device)], dim=1)
+    return o_rows.contiguous(), d_rows.contiguous()
+
+
+def _local_rays(dev, mi, o_rows, d_rows):
+    """World ray rows in mesh instance mi's local frame, unit directions."""
+    inv = dev.inv_transfo[dev.mesh_prim_index[mi]]
+    oi = inv[:3, :3] @ o_rows + inv[:3, 3:4]
+    di = inv[:3, :3] @ d_rows
+    di = di / torch.clamp(torch.linalg.vector_norm(di, dim=0), min=1e-30)
+    return oi.contiguous(), di.contiguous()
+
+
+def _instance_tris(dev, mi):
+    off, cnt = dev.mesh_tri_offset[mi], dev.mesh_tri_padded[mi]
+    return ptk.pad_tris(dev.tri_va[off:off + cnt], dev.tri_vb[off:off + cnt],
+                        dev.tri_vc[off:off + cnt])
+
+
+def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
+    """Each trace kernel against its plain version on the card, and the
+    pruned walks against the brute folds on the same rays (the
+    reference's invariant, tests/test_sparse_trace.py:27-54)."""
+    worst = {k: 0.0 for k in TRACE_KERNELS}
+    # K3a: one random ~200-prim group per shape code, two ray tiles
+    o_np, d_np = random_rays(2048, 7)
+    o = torch.as_tensor(o_np, device=device)
+    d = torch.as_tensor(d_np, device=device)
+    for code in sorted(PRIM_OPS):
+        trf, inv, pid = (torch.as_tensor(a, device=device) for a in
+                         random_group(transforms, code, 200, 100 * code + 200))
+        tables = ptk._pad_group(trf, inv, pid)
+        got = ptk.group_best_rows(o, d, code, *tables)
+        ref = ptk.group_best_rows_plain(o, d, code, *tables)
+        worst["K3a"] = max(worst["K3a"], _check_trace(
+            f"K3a shape {code} vs plain", ref, got))
+
+    # K5 (and K3a) on colonnes' two large groups, one 1<<17 ray tile
+    dev = compile_scene(scenes.build("colonnes", 0.4), device=device)
+    o, d = _mixed_rays(dev, 1920, 1080, tile_rays, 11)
+    for gi, code in enumerate(dev.group_codes):
+        if dev.group_prim[gi].shape[0] <= trace_mod.SMALL_GROUP_MAX:
+            continue
+        tables = ptk._pad_group(dev.group_transfo[gi], dev.group_inv[gi],
+                                dev.group_prim[gi])
+        sbb = dev.group_super_bb[gi]
+        k5 = spk.group_best_rows_sparse(o, d, code, *tables, sbb)
+        p5 = spk.an_fold_plain(o, d, *spk.an_inputs(o, d, *tables, sbb), code)
+        k3 = ptk.group_best_rows(o, d, code, *tables)
+        p3 = ptk.group_best_rows_plain(o, d, code, *tables)
+        tag = f"colonnes group {gi} (shape {code}, {tables[0].shape[1]} prims)"
+        worst["K5"] = max(worst["K5"], _check_trace(f"K5 {tag} vs plain",
+                                                    p5, k5))
+        worst["K3a"] = max(worst["K3a"], _check_trace(f"K3a {tag} vs plain",
+                                                      p3, k3))
+        _check_trace(f"K5 vs K3a {tag}", k3, k5)
+
+    # K4a and K6 on each mesh_demo instance at one 1<<17 ray tile, and on
+    # mesh_hires's sphere at 8192 rays (the brute plain fold stays cheap)
+    for name, m in (("mesh_demo", tile_rays), ("mesh_hires", hires_rays)):
+        dev = compile_scene(scenes.build(name), device=device)
+        o, d = _mixed_rays(dev, 800, 600, m, 13)
+        for mi in range(len(dev.mesh_prim_index)):
+            if name == "mesh_hires" and mi > 0:
+                break
+            oi, di = _local_rays(dev, mi, o, d)
+            tri = _instance_tris(dev, mi)
+            cbb = dev.mesh_chunk_bb[mi]
+            k6 = spk.mesh_best_rows_sparse(oi, di, tri, cbb)
+            p6 = spk.mesh_fold_plain(oi, di, tri,
+                                     *spk.mesh_inputs(oi, di, tri, cbb))
+            k4 = ptk.mesh_best_rows(oi, di, tri)
+            p4 = ptk.mesh_best_rows_plain(oi, di, tri)
+            tag = f"{name} instance {mi} ({tri.shape[1] // 128} chunks, {m} rays)"
+            worst["K6"] = max(worst["K6"], _check_trace(f"K6 {tag} vs plain",
+                                                        p6, k6))
+            worst["K4a"] = max(worst["K4a"], _check_trace(
+                f"K4a {tag} vs plain", p4, k4))
+            _check_trace(f"K6 vs K4a {tag}", k4, k6)
+    torch.cuda.synchronize()
+    return worst
+
+
+ROUTE_CASES = (("colonnes", 0.4, 1.0), ("mesh_demo", 1.2, 1.3))
+
+
+def phase_trace_route_parity(device, w=64, h=48, bounces=4):
+    """The pallas-trace route with the kernels against the route with
+    their plain versions, through models.montecarlo.raytrace, under the
+    fused protocol; nb_bounces=0 gives black."""
+    o, d, tc = _rays(device, w, h)
+    worst = 0.0
+    for name, light, ior in ROUTE_CASES:
+        dev = compile_scene(scenes.build(name, light), device=device)
+        for p in (0, 3):
+            _reset_counts()
+            got = raytrace(dev, o, d, tc, p, nb_bounces=bounces,
+                           refract_ind=ior, use_kernels=True,
+                           use_megakernel=False, use_fused=False)
+            counts = _all_counts()
+            with plain_trace_kernels():
+                ref = raytrace(dev, o, d, tc, p, nb_bounces=bounces,
+                               refract_ind=ior, use_kernels=True,
+                               use_megakernel=False, use_fused=False)
+            got, ref = got.cpu().numpy(), ref.cpu().numpy()
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{name} pass {p}: non-finite output")
+            off, err = fused_match(ref, got)
+            print(f"route parity {name} ior={ior} pass={p}: launches "
+                  f"{counts}; off={off:.4f} (allowed {FUSED_FRAC}) "
+                  f"max_abs_err={err:.3e}", flush=True)
+            assert_fused_protocol(ref, got, f"route {name} pass {p}")
+            want = "K6" if dev.mesh_prim_index else "K5"
+            if counts[want] == 0:
+                raise AssertionError(f"route {name}: {want} never launched")
+            worst = max(worst, err)
+        black = raytrace(dev, o, d, tc, 0, nb_bounces=0, refract_ind=ior,
+                         use_kernels=True, use_megakernel=False,
+                         use_fused=False)
+        if not bool((black == 0).all()):
+            raise AssertionError(f"{name}: nb_bounces=0 is not black")
+    print("route parity nb_bounces=0: all black", flush=True)
+    return worst
+
+
+def _launches_per_pass(dev, r, kid):
+    """The route's launches of kernel kid in one pass: per tile, bounce
+    and trace (two on transparent scenes) one per mesh instance (K4a,
+    K6) or large analytic group (K3a, K5)."""
+    if kid in ("K4a", "K6"):
+        units = len(dev.mesh_prim_index)
+    else:
+        units = sum(int(p.shape[0]) > trace_mod.SMALL_GROUP_MAX
+                    for p in dev.group_prim)
+    traces = 2 if dev.has_transparent else 1
+    return r._ntiles * r.config.nb_bounces * traces * units
+
+
+def _pass_stats(kid, r, rec):
+    """Kernel kid over one recorded pass: printed ms per launch and pass,
+    by bounce, its work and bound; returns (ms per launch, ms per pass,
+    bound ms per launch, bound ms per pass, bounded by)."""
+    ms, work, needed = _time_recorded(kid, rec)
+    ops = sum(_needed_ops(kid, args, int(n[0]), int(n[1]))
+              for n, (_, args, _) in zip(needed, rec))
+    nbytes = sum(_launch_bytes(kid, args) for _, args, _ in rec)
+    bound_pass, bound_by = bound(nbytes, ops)
+    per_tile = len(rec) // r._ntiles
+    per_bounce = per_tile // r.config.nb_bounces
+    by_bounce = ms.reshape(r._ntiles, r.config.nb_bounces,
+                           per_bounce).sum(axis=(0, 2))
+    print(f"{kid} alone: {ms.mean():.4f} ms per launch, {ms.sum():.4f} ms "
+          f"per pass ({len(rec)} launches); work per pass: "
+          f"{int(work[:, 0].sum())} tests done ({int(needed[:, 0].sum())} "
+          f"needed), {int(work[:, 2].sum())} hits ({int(needed[:, 1].sum())}"
+          f" needed), {int(work[:, 1].sum())} chunks or blocks visited; "
+          f"bound {bound_pass:.4f} ms per pass ({bound_by}: {ops:.4g} FP32 "
+          f"operations, {nbytes} bytes)", flush=True)
+    print(f"{kid} by bounce (ms per pass): " + ", ".join(
+        f"{b}: {t:.4f}" for b, t in enumerate(by_bounce)), flush=True)
+    return (float(ms.mean()), float(ms.sum()), bound_pass / len(rec),
+            bound_pass, bound_by)
+
+
+def _tile_call(r, t, pass_index):
+    """Renderer r's integrator on its ray tile t for one pass, as
+    Renderer._passes calls it (nothing is accumulated)."""
+    cfg = r.config
+    return r._integrator(r.scene, r._origin, r._dirs[t], r._tc[t],
+                         pass_index, nb_bounces=cfg.nb_bounces,
+                         refract_ind=cfg.refract_ind, date=cfg.date,
+                         detach_sampling=cfg.detach_sampling, **r.route)
+
+
+def _tile_idle(r, kid):
+    """Wall time of one tile's integrator call (host clock, synchronized),
+    the device's busy time in the same call under torch.profiler and kid's
+    share of it, and the idle share. One tile, not a pass: the profiler's
+    cost grows with the tens of thousands of small kernels a pass
+    launches."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _tile_call(r, 0, r.nb_passes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    busy, mine = _device_seconds(lambda: _tile_call(r, 0, r.nb_passes),
+                                 TRACE_KERNELS[kid][2], cpu=False)
+    idle = f"{1.0 - busy / wall:.4f}" if busy > 0 else "not measured"
+    print(f"one tile call of {r._tile} rays: {wall * 1e3:.4f} ms wall, "
+          f"device busy {busy * 1e3:.4f} ms ({kid} {mine * 1e3:.4f} ms); "
+          f"device idle share {idle}", flush=True)
+    return wall, busy
+
+
+def phase_trace_path(device, name, light, ior, kid, w, h, bounces, window,
+                     tile_rays=1 << 17):
+    """A full-size path of the pallas-trace route through compile_scene
+    and Renderer.advance with RenderConfig(use_megakernel=False): kernel
+    kid's launch count over one window, the image, rays/s, the device's
+    busy time and idle share, kid's time per launch and pass with its
+    work and bound, and full-size launches against the plain version."""
+    dev = compile_scene(scenes.build(name, light), device=device)
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       refract_ind=ior, light_intensity=light,
+                       tile_rays=tile_rays, passes_per_call=window,
+                       use_megakernel=False, device=device)
+    r = Renderer(dev, cfg)
+    _tile_call(r, 0, 0)                     # warm-up: one tile
+    rec = []
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_launches(kid, rec):         # keeps references only
+        r.advance(window)                   # synchronizes before returning
+    window_s = time.perf_counter() - t0
+    counts = _all_counts()
+    per_pass = _launches_per_pass(dev, r, kid)
+    if counts[kid] != window * per_pass or sum(counts.values()) != counts[kid]:
+        raise AssertionError(f"{name}: launches {counts} in the window, want "
+                             f"{kid} {window} x {per_pass} and nothing else")
+    img = r.image()
+    if img.shape != (h, w, 3) or not np.isfinite(img).all() \
+            or (img < 0).any():
+        raise AssertionError(f"{name} image is not finite and >= 0")
+    rays_per_s = w * h * window * bounces / window_s
+    wall_pass = window_s / window
+    print(f"trace path: {name} {w}x{h} {bounces} bounces, {r._ntiles} tiles "
+          f"of {r._tile} rays, {window}-pass window {window_s:.4f} s "
+          f"({wall_pass * 1e3:.3f} ms wall per pass), launches {counts} "
+          f"({per_pass} {kid} per pass), image mean {img.mean():.5f}, "
+          f"{rays_per_s:.6g} rays/s", flush=True)
+    tile_wall, tile_busy = _tile_idle(r, kid)
+
+    rec = rec[:per_pass]                    # the window's first pass
+    ms_launch, ms_pass, bound_launch, bound_pass, bound_by = _pass_stats(
+        kid, r, rec)
+    plain_ms, kern_ms, err = _plain_vs_kernel(kid, rec)
+    return dict(launches=counts[kid], rays_per_s=rays_per_s,
+                window_s=window_s, wall_pass_ms=wall_pass * 1e3,
+                tile_wall_ms=tile_wall * 1e3, tile_busy_ms=tile_busy * 1e3,
+                ms=ms_launch, ms_pass=ms_pass, plain_ms=plain_ms,
+                bound_ms=bound_launch, bound_pass=bound_pass,
+                bound_by=bound_by, max_abs_err=err, rec=rec)
+
+
+def phase_trace_brute(device, name, light, ior, kid, bounces, w=800, h=600,
+                      tile_rays=1 << 17):
+    """One pass of the route with cull_chunks=False at w x h: the brute
+    kernel kid's launch count, its image against the culled route's under
+    the fused protocol, its time and bound over that pass, and full-size
+    launches against the plain version."""
+    dev = compile_scene(scenes.build(name, light), device=device)
+    imgs = {}
+    rec = []
+    for cull in (None, False):
+        cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                           refract_ind=ior, light_intensity=light,
+                           tile_rays=tile_rays, use_megakernel=False,
+                           cull_chunks=cull, device=device)
+        r = Renderer(dev, cfg)
+        _reset_counts()
+        with record_launches(kid, rec):
+            imgs[cull] = r.run(1)
+        counts = _all_counts()
+    per_pass = _launches_per_pass(dev, r, kid)
+    if counts[kid] != per_pass or sum(counts.values()) != counts[kid] \
+            or len(rec) != per_pass:
+        raise AssertionError(f"{name} brute: launches {counts}, want {kid} "
+                             f"{per_pass} and nothing else")
+    off, err = fused_match(imgs[None], imgs[False])
+    print(f"brute route {name} {w}x{h} {bounces} bounces: launches {counts}; "
+          f"image vs the culled route off={off:.4f} (allowed {FUSED_FRAC}) "
+          f"max_abs_err={err:.3e}", flush=True)
+    assert_fused_protocol(imgs[None], imgs[False], f"{name} brute vs culled")
+    ms_launch, ms_pass, bound_launch, bound_pass, bound_by = _pass_stats(
+        kid, r, rec)
+    plain_ms, kern_ms, err = _plain_vs_kernel(kid, rec)
+    return dict(launches=counts[kid], ms=ms_launch, ms_pass=ms_pass,
+                plain_ms=plain_ms, bound_ms=bound_launch,
+                bound_pass=bound_pass, bound_by=bound_by, max_abs_err=err,
+                rec=rec)
+
+
+@contextlib.contextmanager
+def fma_trace_kernels():
+    """Within the block, the trace kernels' wrappers launch a build of
+    csrc/trace_kernels.cu with contracted multiply-adds: the flags of
+    kernels.py without the -fmad=false of kernels.EXTRA_FLAGS."""
+    flags = kernels.EXTRA_FLAGS
+    lib = kernels._loaded.pop("trace_kernels")
+    kernels.EXTRA_FLAGS = {}
+    try:
+        kernels.trace_kernels_lib()         # builds and loads that build
+        yield
+    finally:
+        kernels.EXTRA_FLAGS = flags
+        kernels._loaded["trace_kernels"] = lib
+
+
+def phase_fma(trace, n=8):
+    """Each trace kernel built with FMA contraction against the default
+    build without it, in this call, on the recorded full-size launches of
+    phases 9 and 10: the mean ms per launch of each build over the pass
+    (CUDA events, _time_recorded), and how far the FMA build's distances
+    move from the default build's, which equal the plain versions', on n
+    of the launches."""
+    for kid in ("K3a", "K4a", "K5", "K6"):
+        rec = trace[kid]["rec"]
+        sub = rec[::max(1, len(rec) // n)]
+        ms_ref = _time_recorded(kid, rec)[0].mean()
+        ref = [real(*args, **kw)[:2] for real, args, kw in sub]
+        with fma_trace_kernels():
+            ms_fma = _time_recorded(kid, rec)[0].mean()
+            got = [real(*args, **kw)[:2] for real, args, kw in sub]
+
+        def rows(outs, i):
+            return torch.cat([o[i] for o in outs]).cpu().numpy()
+
+        frac, bad, rel, err = trace_match(rows(ref, 0), rows(ref, 1),
+                                          rows(got, 0), rows(got, 1))
+        print(f"{kid} built with FMA contraction vs without: {ms_fma:.4f} "
+              f"vs {ms_ref:.4f} ms per launch over the pass ({len(rec)} "
+              f"launches); on {len(sub)} launches rows equal {frac:.5f}, "
+              f"differing rows without equal distance {bad}, max rel err "
+              f"{rel:.2e}, max abs err {err:.3e}", flush=True)
+
+
+def _trace_line(kid, res):
+    name, replaces, _ = TRACE_KERNELS[kid]
+    return {"name": name, "route": "cuda", "source": TRACE_SOURCE,
+            "replaces": replaces, "launches": res["launches"],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -533,13 +1157,15 @@ def main() -> int:
     name_power = card()
     print(name_power, flush=True)
     t0 = time.perf_counter()
-    kernels.build_all(["megakernel", "bounce_kernel"])
+    kernels.build_all(["megakernel", "bounce_kernel", "trace_kernels"])
     kernels.megakernel_lib()
     kernels.bounce_kernel_lib()
-    print(f"K1 and K2 built and loaded in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    kernels.trace_kernels_lib()
+    print(f"K1, K2 and the trace kernels built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     print(kernels.build_log("megakernel").strip(), flush=True)
     print(kernels.build_log("bounce_kernel").strip(), flush=True)
+    print(kernels.build_log("trace_kernels").strip(), flush=True)
 
     worst = phase_parity("cuda")
     res = phase_main_path("cuda")
@@ -561,6 +1187,34 @@ def main() -> int:
           flush=True)
     phase_k2_whole_path("cuda")
 
+    worst3 = phase_trace_parity("cuda")
+    print(f"phase-7 trace kernel parity worst max_abs_err {worst3}",
+          flush=True)
+    worst4 = phase_trace_route_parity("cuda")
+    print(f"phase-8 route parity worst max_abs_err {worst4:.3e}", flush=True)
+    trace = {}
+    for kid, name, light, ior, w, h, bounces, window in (
+            ("K6", "mesh_demo", 1.2, 1.0, 800, 600, 8, 2),
+            ("K5", "colonnes", 0.4, 1.0, 1920, 1080, 6, 1)):
+        res3 = phase_trace_path("cuda", name, light, ior, kid, w, h, bounces,
+                                window)
+        print(f"[{name_power}] {name} pallas-trace route end to end "
+              f"{res3['rays_per_s']:.6g} rays/s ({w}x{h} x {window} passes x "
+              f"{bounces} bounces / {res3['window_s']:.4f} s); {kid} "
+              f"{res3['ms']:.4f} ms/launch, {res3['ms_pass']:.4f} ms/pass "
+              f"(bound {res3['bound_pass']:.4f} ms/pass, {res3['bound_by']}); "
+              f"plain {res3['plain_ms']:.3f} ms/launch", flush=True)
+        trace[kid] = res3
+    for kid, name, light, ior, bounces in (
+            ("K4a", "mesh_demo", 1.2, 1.0, 8), ("K3a", "colonnes", 0.4, 1.0, 6)):
+        res3 = phase_trace_brute("cuda", name, light, ior, kid, bounces)
+        print(f"[{name_power}] {name} cull_chunks=False {kid} "
+              f"{res3['ms']:.4f} ms/launch, {res3['ms_pass']:.4f} ms/pass "
+              f"(bound {res3['bound_pass']:.4f} ms/pass, {res3['bound_by']}); "
+              f"plain {res3['plain_ms']:.3f} ms/launch", flush=True)
+        trace[kid] = res3
+    phase_fma(trace)
+
     print(json.dumps({"kernels": [
         {"name": "K1 mega_kernel", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": res["launches"],
@@ -571,7 +1225,8 @@ def main() -> int:
          "replaces": K2_REPLACES, "launches": res2["launches"],
          "max_abs_err": res2["max_abs_err"], "ms": res2["k2_ms"],
          "plain_ms": res2["plain_ms"], "bound_ms": res2["bound_ms"],
-         "bound_by": res2["bound_by"], "library_ms": None}]}))
+         "bound_by": res2["bound_by"], "library_ms": None}]
+        + [_trace_line(kid, trace[kid]) for kid in ("K3a", "K4a", "K5", "K6")]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -151,27 +151,8 @@ __device__ __forceinline__ void fold_tris(const float* __restrict__ tpool, int c
   n.tri += CHUNK;
   count_slots(n);
   for (int t = 0; t < CHUNK; ++t) {
-    const V3 A = row3(blk, 0, t);
-    const V3 B = row3(blk, 3, t);
-    const V3 C = row3(blk, 6, t);
-    const V3 e1 = sub(B, A);
-    const V3 e2 = sub(C, A);
-    const float hx = di.y * e2.z - di.z * e2.y;
-    const float hy = di.z * e2.x - di.x * e2.z;
-    const float hz = di.x * e2.y - di.y * e2.x;
-    const float det = e1.x * hx + e1.y * hy + e1.z * hz;
-    if (!(fabsf(det) >= EPS)) continue;
-    const float invd = 1.0f / det;
-    const V3 s = sub(oi, A);
-    const float u = (s.x * hx + s.y * hy + s.z * hz) * invd;
-    const float qx = s.y * e1.z - s.z * e1.y;
-    const float qy = s.z * e1.x - s.x * e1.z;
-    const float qz = s.x * e1.y - s.y * e1.x;
-    const float v = (di.x * qx + di.y * qy + di.z * qz) * invd;
-    const float a = (e2.x * qx + e2.y * qy + e2.z * qz) * invd;
-    const bool valid =
-        (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (a > EPS);
-    if (valid && a < abest) {
+    float a;
+    if (mt_hit(row3(blk, 0, t), row3(blk, 3, t), row3(blk, 6, t), oi, di, a) && a < abest) {
       abest = a;
       best = c * CHUNK + t;
     }

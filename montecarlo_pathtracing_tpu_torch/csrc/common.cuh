@@ -1,10 +1,13 @@
-// Device code shared by K1 (megakernel.cu) and K2 (bounce_kernel.cu).
+// Device code shared by K1 (megakernel.cu), K2 (bounce_kernel.cu) and the
+// trace kernels K3a, K4a, K5 and K6 (trace_kernels.cu).
 //
-// The JAX package shares the same pieces between its two kernels:
+// The JAX package shares the same pieces between its kernels:
 // montecarlo_pathtracing_tpu/models/bounce_kernel.py imports _trace_fold
-// and _bounce_step from megakernel.py. Here they are: the vec3 helpers,
-// the xxhash32 RNG and random_ray, the five analytic shape tests and the
-// shading-normal point, the slab test, the closest-hit fold over a [38, P]
+// and _bounce_step from megakernel.py, and every kernel uses the shape
+// tests of ops/pallas_trace.py. Here they are: the vec3 helpers, the
+// xxhash32 RNG and random_ray, the five analytic shape tests and the
+// shading-normal point, Moller-Trumbore (mt_hit), the slab test, the
+// closest-hit fold over a [38, P]
 // prim table (prim_work, fold_group, trace_fold) and one bounce of
 // tp/montecarlo.frag:109-176 (bounce_step), a template over the trace
 // function so that each kernel brings its own closest-hit search.
@@ -252,6 +255,28 @@ __device__ __forceinline__ bool cone_test(V3 o, V3 d, float& a, int& code) {
   a = tl;
   code = cl;
   return tl < FMAX;
+}
+
+// Moller-Trumbore of triangle (A, B, C) against the ray oi + a di (the
+// reference's _tri_kernel and _mt_rows): set a and return true where the
+// triangle is hit at a > EPS
+__device__ __forceinline__ bool mt_hit(V3 A, V3 B, V3 C, V3 oi, V3 di, float& a) {
+  const V3 e1 = sub(B, A);
+  const V3 e2 = sub(C, A);
+  const float hx = di.y * e2.z - di.z * e2.y;
+  const float hy = di.z * e2.x - di.x * e2.z;
+  const float hz = di.x * e2.y - di.y * e2.x;
+  const float det = e1.x * hx + e1.y * hy + e1.z * hz;
+  if (!(fabsf(det) >= EPS)) return false;
+  const float invd = 1.0f / det;
+  const V3 s = sub(oi, A);
+  const float u = (s.x * hx + s.y * hy + s.z * hz) * invd;
+  const float qx = s.y * e1.z - s.z * e1.y;
+  const float qy = s.z * e1.x - s.x * e1.z;
+  const float qz = s.x * e1.y - s.y * e1.x;
+  const float v = (di.x * qx + di.y * qy + di.z * qz) * invd;
+  a = (e2.x * qx + e2.y * qy + e2.z * qz) * invd;
+  return (u >= 0.0f) && (u <= 1.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (a > EPS);
 }
 
 template <int SHAPE>

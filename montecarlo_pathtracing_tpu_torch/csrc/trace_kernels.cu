@@ -1,0 +1,428 @@
+// The trace kernels of the pallas-trace route, by hand for Hopper (sm_90a):
+// the closest hit of a ray set against one analytic group or one mesh
+// instance. The host (ops/pallas_trace.py, ops/sparse_trace.py) pads the
+// tables, computes the tile bundles, entry bounds, root-box exit bounds
+// and the ranked schedules, and merges the winners into the scene's hit
+// record (ops/trace.py::trace_soa).
+//
+// K3a group_kernel replaces montecarlo_pathtracing_tpu/ops/pallas_trace.py:162
+//     (_group_kernel_plain, launched by group_best_rows): world rays against
+//     every prim of a homogeneous group; (dist, group row, local a, dircode).
+// K4a tri_kernel replaces ops/pallas_trace.py:497 (_tri_kernel, launched by
+//     mesh_best_rows): Moller-Trumbore of mesh-local unit rays against every
+//     128-triangle chunk, folded on the local parameter a; (a, row).
+// K5 an_walk replaces ops/sparse_trace.py:139 (_an_kernel, launched by
+//     _an_fold_call inside group_best_rows_sparse): the nearest-first walk of
+//     a 1024-ray tile over the group's 8-prim blocks, with the occlusion prune.
+// K6 mesh_walk replaces ops/sparse_trace.py:374 (_mesh_kernel, launched by
+//     _mesh_fold_call inside mesh_best_rows_sparse): the same walk of a
+//     128-ray tile over the instance's 128-triangle chunks.
+// Their plain PyTorch versions are the *_plain functions beside the
+// wrappers; chip_smoke.py holds each kernel against its plain version.
+//
+// Design. One thread per ray, its best hit in registers. K3a reads the
+// group's table columns with __ldg: every thread of a warp reads the same
+// column, so each load is one broadcast. K4a and K6 stage each chunk's
+// [9, 128] corner rows (4.6 KB) in shared memory, one column per thread,
+// and every thread then tests all 128 triangles from there. K5 stages a
+// block's [25, 8] table (inverse rows, forward rows, ok flag). Folds run in
+// ascending prim or triangle order with a strict `<`: the TPU kernels'
+// first minimum inside a chunk followed by a strictly-closer merge across
+// chunks (pallas_trace.py:204-224) is exactly that scan, so the winners,
+// ties included, are the TPU kernels'. Padding prims (scene id < 0 in K3a,
+// ok flag 0 in K5) never win; padding triangles are degenerate.
+//
+// The walks (K5, K6). A block walks its tile's ranked list (order[t],
+// tlo[t], ascending entry bound) front to back in one launch. Before each
+// block or chunk it asks with __syncthreads_or whether any of its rays still
+// has tlo < min(best, bound), the prune of sparse_trace.py:401-403, and ends
+// the walk at the first that none has. The TPU took the prune over the whole
+// tile; here it is taken over the block's own rays (a quarter tile in K5),
+// and that is sound over any subset of a tile's rays, down to one: tlo
+// lower-bounds every ray of the tile's entry into the box (the bundle holds
+// them all), and bound caps every hit inside the root box, so a block
+// skipped for ray r holds no hit strictly closer than r's best. The list is
+// sorted and best only shrinks, so nothing later passes either. Winners
+// equal the brute fold's; on an exact distance tie between two blocks the
+// ranked order decides, as it does on the TPU. The TPU's repeated calls
+// over a budgeted worklist, carrying the best in and out (ain/rin), are not
+// needed: the whole list is walked in one launch.
+//
+// What bounds them on this card: FP32 operations. A ray-prim test is 47-86
+// FP32 operations (the local frame 42, the shape test 5-44), and 33 more for
+// the world hit point and distance where the shape test passes; a
+// ray-triangle test is 51 (20 where the determinant rejects it). The bytes
+// are few: rays in, winners out,
+// tables read from L1 and L2 (a group's [25, P] table is 52 KB at 512 prims;
+// mesh_demo's largest instance is 83 KB of corners). What keeps them from
+// that bound: divergence inside the shape tests, the brute kernels' tests of
+// prims a ray can never hit, and in the walks the chunks a block visits for
+// its few rays that still need them.
+//
+// Work counters, when `counts` is set: [0] ray-prim or ray-triangle tests
+// done, [1] 128-prim chunks (K3a), chunks (K4a, K6) or 8-prim blocks (K5)
+// that blocks visited, [2] tests that hit (the shape test passed, or the
+// triangle was hit).
+//
+// Floating point is IEEE, without --use_fast_math (see common.cuh), and this
+// file is built without FMA contraction (-fmad=false, kernels.EXTRA_FLAGS):
+// every multiply and add rounds on its own, as in the plain versions, and
+// the kernels return their distances bit for bit. The world distance is
+// rebuilt from a hit point in the prim's frame, which cancels badly for rays
+// far from a prim; with contracted multiply-adds the distances moved by up
+// to 1.5e-3 relative on an H100, past the reference's own 5e-4 between its
+// folds (tests/test_pallas_trace.py:72). chip_smoke.py times both builds.
+
+#include "common.cuh"
+
+namespace {
+
+using namespace pt;
+
+constexpr int CHUNK = 128;      // prims or triangles per chunk
+constexpr int SUPB = 8;         // prims per K5 block
+constexpr int TAB_ROWS = 25;    // K5 block rows: inverse, forward, ok flag
+constexpr int AN_TILE = 1024;   // rays per K5 tile
+constexpr int AN_BLOCK = 256;   // rays per K5 thread block (a quarter tile)
+constexpr int MESH_TILE = 128;  // rays per K6 tile and thread block
+constexpr float INF = 3e38f;    // entry bound of an unreachable block
+
+__device__ __forceinline__ V3 ray_at(const float* r, int M, int i) {
+  return {r[i], r[M + i], r[2 * M + i]};
+}
+
+// the thread's tests and hits summed per warp, and the block's visits once
+__device__ __forceinline__ void add_counts(unsigned long long* counts, uint32_t tests,
+                                           uint32_t visits, uint32_t hits) {
+  if (!counts) return;
+  const unsigned mask = __activemask();
+  const uint32_t sum = __reduce_add_sync(mask, tests);
+  const uint32_t hsum = __reduce_add_sync(mask, hits);
+  if ((threadIdx.x % 32) == __ffs(mask) - 1) {
+    atomicAdd(counts, static_cast<unsigned long long>(sum));
+    atomicAdd(counts + 2, static_cast<unsigned long long>(hsum));
+  }
+  if (threadIdx.x == 0) atomicAdd(counts + 1, static_cast<unsigned long long>(visits));
+}
+
+// one ray against one prim of a group: world distance and local hit (a,
+// code), false where the shape test fails
+template <int SHAPE>
+__device__ __forceinline__ bool prim_hit(const float* iv, const float* tf, V3 o, V3 d, float& dist,
+                                         float& a, int& code) {
+  const V3 oi = affine(iv, o);
+  const V3 di = vnorm(linear(iv, d), TINY);
+  if (!shape_test<SHAPE>(oi, di, a, code)) return false;
+  const V3 pl = {oi.x + a * di.x, oi.y + a * di.y, oi.z + a * di.z};
+  const V3 e = sub(o, affine(tf, pl));
+  dist = sqrtf(e.x * e.x + e.y * e.y + e.z * e.z);
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// K3a: every prim of one group, ascending
+// ---------------------------------------------------------------------------
+
+template <int SHAPE>
+__global__ void __launch_bounds__(CHUNK)
+    group_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
+                 const float* __restrict__ inv, const float* __restrict__ trf,
+                 const int* __restrict__ pid, int ppad, float* dist_out, int* row_out,
+                 float* a_out, int* dir_out, unsigned long long* counts) {
+  const int ray = blockIdx.x * CHUNK + threadIdx.x;
+  const V3 ro = ray_at(o, M, ray);
+  const V3 rd = ray_at(d, M, ray);
+  float bd = FMAX, ba = 0.0f;
+  int brow = -1, bdir = -1;
+  uint32_t tests = 0, hits = 0;
+  for (int c = 0; c < ppad; ++c) {
+    if (__ldg(pid + c) < 0) continue;  // group padding never hits
+    ++tests;
+    float iv[12], tf[12];
+#pragma unroll
+    for (int r = 0; r < 12; ++r) iv[r] = ld(inv, r, ppad, c);
+#pragma unroll
+    for (int r = 0; r < 12; ++r) tf[r] = ld(trf, r, ppad, c);
+    float dist, a;
+    int code;
+    if (!prim_hit<SHAPE>(iv, tf, ro, rd, dist, a, code)) continue;
+    ++hits;
+    if (dist < bd) {
+      bd = dist;
+      brow = c;
+      ba = a;
+      bdir = code;
+    }
+  }
+  dist_out[ray] = bd;
+  row_out[ray] = bd < FMAX ? brow : -1;
+  a_out[ray] = ba;
+  dir_out[ray] = bdir;
+  add_counts(counts, tests, ppad / CHUNK, hits);
+}
+
+// ---------------------------------------------------------------------------
+// K4a: every 128-triangle chunk of one instance, ascending
+// ---------------------------------------------------------------------------
+
+// corners of triangle t of the staged chunk
+__device__ __forceinline__ void corners(const float (&s)[9][CHUNK], int t, V3& A, V3& B, V3& C) {
+  A = {s[0][t], s[1][t], s[2][t]};
+  B = {s[3][t], s[4][t], s[5][t]};
+  C = {s[6][t], s[7][t], s[8][t]};
+}
+
+// stage chunk c of the [9, ppad] corner rows, one column per thread
+__device__ __forceinline__ void stage_chunk(float (&s)[9][CHUNK], const float* tri, int ppad,
+                                            int c) {
+#pragma unroll
+  for (int r = 0; r < 9; ++r) s[r][threadIdx.x] = __ldg(tri + r * ppad + c * CHUNK + threadIdx.x);
+}
+
+// fold the staged chunk c into (abest, best) under the strictly-closer rule,
+// counting the triangles hit
+__device__ __forceinline__ void fold_chunk(const float (&s)[9][CHUNK], int c, V3 oi, V3 di,
+                                           float& abest, int& best, uint32_t& hits) {
+  for (int t = 0; t < CHUNK; ++t) {
+    V3 A, B, C;
+    corners(s, t, A, B, C);
+    float a;
+    if (!mt_hit(A, B, C, oi, di, a)) continue;
+    ++hits;
+    if (a < abest) {
+      abest = a;
+      best = c * CHUNK + t;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(CHUNK)
+    tri_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
+               const float* __restrict__ tri, int ppad, float* a_out, int* row_out,
+               unsigned long long* counts) {
+  __shared__ float s[9][CHUNK];
+  const int ray = blockIdx.x * CHUNK + threadIdx.x;
+  const V3 oi = ray_at(o, M, ray);
+  const V3 di = ray_at(d, M, ray);
+  float abest = FMAX;
+  int best = -1;
+  const int nchunks = ppad / CHUNK;
+  uint32_t hits = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();  // every thread is done with the previous chunk
+    stage_chunk(s, tri, ppad, c);
+    __syncthreads();
+    fold_chunk(s, c, oi, di, abest, best, hits);
+  }
+  a_out[ray] = abest;
+  row_out[ray] = abest < FMAX ? best : -1;
+  add_counts(counts, static_cast<uint32_t>(ppad), nchunks, hits);
+}
+
+// ---------------------------------------------------------------------------
+// K5: a quarter of a 1024-ray tile walks its tile's ranked 8-prim blocks
+// ---------------------------------------------------------------------------
+
+template <int SHAPE>
+__global__ void __launch_bounds__(AN_BLOCK)
+    an_walk(const float* __restrict__ o, const float* __restrict__ d, int M,
+            const float* __restrict__ tab, const int* __restrict__ order,
+            const float* __restrict__ tlo, int S, const float* __restrict__ bound,
+            float* dist_out, int* row_out, float* a_out, int* dir_out,
+            unsigned long long* counts) {
+  __shared__ float s[TAB_ROWS * SUPB];
+  const int tile = blockIdx.x / (AN_TILE / AN_BLOCK);
+  const int ray = blockIdx.x * AN_BLOCK + threadIdx.x;
+  const V3 ro = ray_at(o, M, ray);
+  const V3 rd = ray_at(d, M, ray);
+  const float bnd = bound[ray];
+  const int* ord = order + static_cast<size_t>(tile) * S;
+  const float* ent = tlo + static_cast<size_t>(tile) * S;
+  float bd = FMAX, ba = 0.0f;
+  int brow = -1, bdir = -1;
+  uint32_t tests = 0, visits = 0, hits = 0;
+  for (int k = 0; k < S; ++k) {
+    const float e = __ldg(ent + k);  // the same for every thread
+    if (!(e < INF)) break;           // unreachable blocks sort last
+    if (!__syncthreads_or(e < fminf(bd, bnd))) break;  // the occlusion prune
+    const int b = __ldg(ord + k);
+    if (threadIdx.x < TAB_ROWS * SUPB)
+      s[threadIdx.x] = __ldg(tab + static_cast<size_t>(b) * TAB_ROWS * SUPB + threadIdx.x);
+    __syncthreads();
+    ++visits;
+    for (int j = 0; j < SUPB; ++j) {
+      if (!(s[24 * SUPB + j] > 0.0f)) continue;  // the ok flag gates the take
+      ++tests;
+      float iv[12], tf[12];
+#pragma unroll
+      for (int r = 0; r < 12; ++r) iv[r] = s[r * SUPB + j];
+#pragma unroll
+      for (int r = 0; r < 12; ++r) tf[r] = s[(12 + r) * SUPB + j];
+      float dist, a;
+      int code;
+      if (!prim_hit<SHAPE>(iv, tf, ro, rd, dist, a, code)) continue;
+      ++hits;
+      if (dist < bd) {
+        bd = dist;
+        brow = b * SUPB + j;
+        ba = a;
+        bdir = code;
+      }
+    }
+  }
+  dist_out[ray] = bd;
+  row_out[ray] = brow;
+  a_out[ray] = ba;
+  dir_out[ray] = bdir;
+  add_counts(counts, tests, visits, hits);
+}
+
+// ---------------------------------------------------------------------------
+// K6: a 128-ray tile walks its ranked 128-triangle chunks
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(MESH_TILE)
+    mesh_walk(const float* __restrict__ o, const float* __restrict__ d, int M,
+              const float* __restrict__ tri, int ppad, const int* __restrict__ order,
+              const float* __restrict__ tlo, int S, const float* __restrict__ bound,
+              float* a_out, int* row_out, unsigned long long* counts) {
+  __shared__ float s[9][CHUNK];
+  const int tile = blockIdx.x;
+  const int ray = tile * MESH_TILE + threadIdx.x;
+  const V3 oi = ray_at(o, M, ray);
+  const V3 di = ray_at(d, M, ray);
+  const float bnd = bound[ray];
+  const int* ord = order + static_cast<size_t>(tile) * S;
+  const float* ent = tlo + static_cast<size_t>(tile) * S;
+  float abest = FMAX;
+  int best = -1;
+  uint32_t visits = 0, hits = 0;
+  for (int k = 0; k < S; ++k) {
+    const float e = __ldg(ent + k);  // the same for every thread
+    if (!(e < INF)) break;           // unreachable chunks sort last
+    // the occlusion prune; the barrier also ends every thread's use of the
+    // previous chunk before it is overwritten
+    if (!__syncthreads_or(e < fminf(abest, bnd))) break;
+    const int c = __ldg(ord + k);
+    stage_chunk(s, tri, ppad, c);
+    __syncthreads();
+    ++visits;
+    fold_chunk(s, c, oi, di, abest, best, hits);
+  }
+  a_out[ray] = abest;
+  row_out[ray] = best;
+  add_counts(counts, visits * CHUNK, visits, hits);
+}
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
+template <template <int> class Launch, class... Args>
+int by_shape(int shape, Args... args) {
+  switch (shape) {
+    case SPHERE:
+      Launch<SPHERE>::run(args...);
+      break;
+    case CUBE:
+      Launch<CUBE>::run(args...);
+      break;
+    case CYLINDER:
+      Launch<CYLINDER>::run(args...);
+      break;
+    case CONE:
+      Launch<CONE>::run(args...);
+      break;
+    case QUAD:
+      Launch<QUAD>::run(args...);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int SHAPE>
+struct GroupLaunch {
+  static void run(const float* o, const float* d, int M, const float* inv, const float* trf,
+                  const int* pid, int ppad, float* dist, int* row, float* a, int* dir,
+                  unsigned long long* counts, cudaStream_t stream) {
+    group_kernel<SHAPE><<<M / CHUNK, CHUNK, 0, stream>>>(o, d, M, inv, trf, pid, ppad, dist, row,
+                                                         a, dir, counts);
+  }
+};
+
+template <int SHAPE>
+struct AnLaunch {
+  static void run(const float* o, const float* d, int M, const float* tab, const int* order,
+                  const float* tlo, int S, const float* bound, float* dist, int* row, float* a,
+                  int* dir, unsigned long long* counts, cudaStream_t stream) {
+    an_walk<SHAPE><<<M / AN_BLOCK, AN_BLOCK, 0, stream>>>(o, d, M, tab, order, tlo, S, bound, dist,
+                                                          row, a, dir, counts);
+  }
+};
+
+bool bad_rays(int M, int tile) { return M <= 0 || M % tile != 0; }
+
+}  // namespace
+
+// K3a. o, d: [3, M] f32 (M a multiple of 1024); inv, trf: [12, ppad] f32;
+// pid: [ppad] i32 (ppad a multiple of 128); outputs [M].
+extern "C" int group_best(const void* o, const void* d, int M, const void* inv, const void* trf,
+                          const void* pid, int ppad, int shape, void* dist, void* row, void* a,
+                          void* dir, void* counts, void* stream) {
+  if (bad_rays(M, AN_TILE) || ppad <= 0 || ppad % CHUNK) return cudaErrorInvalidValue;
+  return by_shape<GroupLaunch>(
+      shape, static_cast<const float*>(o), static_cast<const float*>(d), M,
+      static_cast<const float*>(inv), static_cast<const float*>(trf), static_cast<const int*>(pid),
+      ppad, static_cast<float*>(dist), static_cast<int*>(row), static_cast<float*>(a),
+      static_cast<int*>(dir), static_cast<unsigned long long*>(counts),
+      static_cast<cudaStream_t>(stream));
+}
+
+// K4a. o, d: [3, M] f32 (M a multiple of 1024); tri: [9, ppad] f32 (ppad a
+// multiple of 128); outputs [M].
+extern "C" int mesh_best(const void* o, const void* d, int M, const void* tri, int ppad, void* a,
+                         void* row, void* counts, void* stream) {
+  if (bad_rays(M, AN_TILE) || ppad <= 0 || ppad % CHUNK) return cudaErrorInvalidValue;
+  tri_kernel<<<M / CHUNK, CHUNK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(o), static_cast<const float*>(d), M,
+      static_cast<const float*>(tri), ppad, static_cast<float*>(a), static_cast<int*>(row),
+      static_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5. o, d: [3, M] f32 (M a multiple of 1024); tab: [nblk, 25, 8] f32;
+// order: [M/1024, S] i32 block ids; tlo: [M/1024, S] f32 ascending per row;
+// bound: [M] f32; outputs [M].
+extern "C" int an_fold(const void* o, const void* d, int M, const void* tab, int nblk,
+                       const void* order, const void* tlo, int S, const void* bound, int shape,
+                       void* dist, void* row, void* a, void* dir, void* counts, void* stream) {
+  if (bad_rays(M, AN_TILE) || nblk <= 0 || S <= 0) return cudaErrorInvalidValue;
+  return by_shape<AnLaunch>(
+      shape, static_cast<const float*>(o), static_cast<const float*>(d), M,
+      static_cast<const float*>(tab), static_cast<const int*>(order),
+      static_cast<const float*>(tlo), S, static_cast<const float*>(bound),
+      static_cast<float*>(dist), static_cast<int*>(row), static_cast<float*>(a),
+      static_cast<int*>(dir), static_cast<unsigned long long*>(counts),
+      static_cast<cudaStream_t>(stream));
+}
+
+// K6. o, d: [3, M] f32 (M a multiple of 128); tri: [9, ppad] f32; order:
+// [M/128, S] i32 chunk ids; tlo: [M/128, S] f32 ascending per row; bound: [M]
+// f32; outputs [M].
+extern "C" int mesh_fold(const void* o, const void* d, int M, const void* tri, int ppad,
+                         const void* order, const void* tlo, int S, const void* bound, void* a,
+                         void* row, void* counts, void* stream) {
+  if (bad_rays(M, MESH_TILE) || ppad <= 0 || ppad % CHUNK || S <= 0) return cudaErrorInvalidValue;
+  mesh_walk<<<M / MESH_TILE, MESH_TILE, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(o), static_cast<const float*>(d), M,
+      static_cast<const float*>(tri), ppad, static_cast<const int*>(order),
+      static_cast<const float*>(tlo), S, static_cast<const float*>(bound), static_cast<float*>(a),
+      static_cast<int*>(row), static_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* trace_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -26,6 +26,13 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # zero and rely on inf/nan being masked afterwards, as the reference does
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# per source: the trace kernels round every multiply and add on its own, as
+# their plain versions do. Their results are world distances reconstructed
+# from hit points in the prim's frame, which cancel badly for rays far from
+# a prim: built with contracted multiply-adds they moved by up to 1.5e-3
+# relative against the plain versions on an H100, past the reference's own
+# 5e-4 between its folds. chip_smoke.py times both builds in one call.
+EXTRA_FLAGS = {"trace_kernels": ("-fmad=false",)}
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -53,6 +60,10 @@ def sources(name: str) -> list:
     return out
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> str:
     """Where the build of csrc/<name>.cu with its current sources and
     flags lives."""
@@ -60,7 +71,7 @@ def library_path(name: str) -> str:
     for path in sources(name):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -77,7 +88,7 @@ def build_all(names) -> dict:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         src = os.path.join(CSRC, name + ".cu")
-        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.Popen([nvcc(), *_flags(name), "-o", tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((src, out, tmp, proc, time.perf_counter()))
@@ -143,4 +154,30 @@ def bounce_kernel_lib() -> ctypes.CDLL:
         lib.fused_error_string.argtypes = [ctypes.c_int]
         lib.fused_error_string.restype = ctypes.c_char_p
         _loaded["bounce_kernel"] = lib
+    return lib
+
+
+def trace_kernels_lib() -> ctypes.CDLL:
+    """K3a, K4a, K5 and K6 (csrc/trace_kernels.cu), built and loaded once
+    per process."""
+    lib = _loaded.get("trace_kernels")
+    if lib is None:
+        lib = ctypes.CDLL(build("trace_kernels"))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # o, d, M, inv, trf, pid, ppad, shape, dist, row, a, dir, counts,
+        # stream
+        lib.group_best.argtypes = [p, p, i, p, p, p, i, i, p, p, p, p, p, p]
+        # o, d, M, tri, ppad, a, row, counts, stream
+        lib.mesh_best.argtypes = [p, p, i, p, i, p, p, p, p]
+        # o, d, M, tab, nblk, order, tlo, S, bound, shape, dist, row, a,
+        # dir, counts, stream
+        lib.an_fold.argtypes = [p, p, i, p, i, p, p, i, p, i, p, p, p, p, p,
+                                p]
+        # o, d, M, tri, ppad, order, tlo, S, bound, a, row, counts, stream
+        lib.mesh_fold.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p, p]
+        for fn in (lib.group_best, lib.mesh_best, lib.an_fold, lib.mesh_fold):
+            fn.restype = ctypes.c_int
+        lib.trace_error_string.argtypes = [ctypes.c_int]
+        lib.trace_error_string.restype = ctypes.c_char_p
+        _loaded["trace_kernels"] = lib
     return lib

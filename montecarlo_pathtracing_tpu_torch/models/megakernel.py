@@ -54,6 +54,7 @@ from ..ops.intersect import (
     CODE_ORIENTED_QUAD,
 )
 from ..ops.shapes import SOA_FNS
+from ..ops.vec import safe_rcp
 from ..ops.worklist import bundle_box_entry
 
 TILE = 32 * 128           # rays per tile of the super visit order (the
@@ -162,13 +163,6 @@ def _random_ray(state, d, roughness, mask):
 # --------------------------------------------------------------------------
 # the closest-hit fold (plain version of the kernel's trace_fold)
 # --------------------------------------------------------------------------
-
-def _safe_rcp(x):
-    """1/x with exact zeros clamped to a huge finite value (no inf*0=NaN
-    in the slab test; TIR refract rays carry exact-zero components)."""
-    sgn = torch.where(x < 0.0, -1.0, 1.0)
-    return sgn / torch.clamp(torch.abs(x), min=1e-30)
-
 
 def _slab(box, o, rd, dl, best, behind):
     """Ray-vs-AABB slab test against the running best world distance;
@@ -286,7 +280,7 @@ def _fold_table(tab, sbb, groups, cull, ordr_ray, o, d, win):
     With cull, ordr_ray [N, S] is each ray's row of the super visit
     order."""
     if cull:
-        rd = (_safe_rcp(d[0]), _safe_rcp(d[1]), _safe_rcp(d[2]))
+        rd = (safe_rcp(d[0]), safe_rcp(d[1]), safe_rcp(d[2]))
         dl = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
     for code, start, count, sstart in groups:
         behind = code in HITS_BEHIND

@@ -1,0 +1,211 @@
+"""Scene-level closest hit in SoA layout through the trace kernels.
+
+Port of the SoA half of montecarlo_pathtracing_tpu/ops/trace.py
+(:100-296): `trace_soa` folds every analytic group and mesh instance of
+the scene into one `HitS` record, choosing per group or instance the
+same kernel as the reference:
+
+  - groups of at most SMALL_GROUP_MAX prims: `_small_group_soa`, a
+    Python loop over the prims with scalar coefficients (plain torch ops,
+    as the reference's are XLA ops);
+  - larger groups: K5 (`sparse_trace.group_best_rows_sparse`) when
+    culling is on, M is a multiple of AN_TILE and the padded group has at
+    most 1 << 17 prims; otherwise K3a (`pallas_trace.group_best_rows`),
+    whose culled variant K3b a multi-chunk group would need with culling
+    on (not ported: it raises);
+  - mesh instances: K6 (`sparse_trace.mesh_best_rows_sparse`) when
+    culling is on, the instance spans more than one 128-triangle chunk
+    and M is a multiple of MESH_TILE; otherwise K4a
+    (`pallas_trace.mesh_best_rows`), whose culled variant K4b raises.
+
+Tie rule: a candidate replaces the best only if strictly closer in world
+distance, groups in scene order, then instances.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from . import vec
+from .intersect import CODE_MESH, FLT_MAX
+from .pallas_trace import (
+    PRIM_CHUNK, _pad_group, group_best_rows, mesh_best_rows, pad_tris)
+from .shapes import SOA_FNS
+from .sparse_trace import (
+    AN_TILE, MESH_TILE, group_best_rows_sparse, mesh_best_rows_sparse)
+
+_FMAX = float(FLT_MAX)
+
+# Groups of at most this many (padded) prims take the plain scalar fold
+# instead of a kernel, as in the reference
+SMALL_GROUP_MAX = 96
+
+
+class HitS(NamedTuple):
+    """SoA closest-intersection record."""
+    dist: torch.Tensor
+    prim: torch.Tensor
+    shape: torch.Tensor
+    dircode: torch.Tensor
+    tri: torch.Tensor
+    pl: tuple       # vec3, local frame
+    pg: tuple       # vec3, world frame
+
+    @property
+    def is_hit(self):
+        return self.shape >= 0
+
+
+def _miss_soa(m, device):
+    z = torch.zeros((m,), dtype=torch.float32, device=device)
+    mi = torch.full((m,), -1, dtype=torch.int32, device=device)
+    return HitS(torch.full((m,), _FMAX, dtype=torch.float32, device=device),
+                mi, mi, mi, mi, (z, z, z), (z, z, z))
+
+
+def _better_soa(best: HitS, cand: HitS) -> HitS:
+    take = cand.dist < best.dist
+    return HitS(torch.where(take, cand.dist, best.dist),
+                torch.where(take, cand.prim, best.prim),
+                torch.where(take, cand.shape, best.shape),
+                torch.where(take, cand.dircode, best.dircode),
+                torch.where(take, cand.tri, best.tri),
+                vec.where(take, cand.pl, best.pl),
+                vec.where(take, cand.pg, best.pg))
+
+
+def _full_i32(m, value, device):
+    return torch.full((m,), value, dtype=torch.int32, device=device)
+
+
+def trace_soa(scene, o, d, *, cull_chunks: bool | None = None) -> HitS:
+    """Closest hit of rays o, d (vec3s of [M], M a multiple of RAY_TILE,
+    unit directions; pad with unit-z dummy rays). cull_chunks: None
+    (auto) or True takes the pruned walks K5 and K6 where the gates
+    allow; False forces the brute folds K3a and K4a. Winners are equal
+    either way up to exact distance ties."""
+    m = o[0].shape[0]
+    dev = o[0].device
+    o_rows = torch.stack(o)
+    d_rows = torch.stack(d)
+    best = _miss_soa(m, dev)
+    cull = cull_chunks is not False
+
+    for gi, code in enumerate(scene.group_codes):
+        if scene.group_prim[gi].shape[0] <= SMALL_GROUP_MAX:
+            best = _small_group_soa(
+                best, o, d, code, scene.group_transfo[gi],
+                scene.group_inv[gi], scene.group_prim[gi])
+            continue
+        inv_r, trf_r, pid = _pad_group(
+            scene.group_transfo[gi], scene.group_inv[gi],
+            scene.group_prim[gi])
+        sparse = cull and m % AN_TILE == 0 and inv_r.shape[1] <= (1 << 17)
+        if sparse:
+            dist, row, a, dircode = group_best_rows_sparse(
+                o_rows, d_rows, code, inv_r, trf_r, pid,
+                scene.group_super_bb[gi])
+        else:
+            multi = inv_r.shape[1] > PRIM_CHUNK
+            dist, row, a, dircode = group_best_rows(
+                o_rows, d_rows, code, inv_r, trf_r, pid,
+                cbb=scene.group_chunk_bb[gi] if (cull and multi) else None)
+        ok = row >= 0
+        r = torch.where(ok, row, 0).long()
+        tabg = torch.cat([inv_r, trf_r, pid.to(torch.float32)],
+                         dim=0)[:, r]                       # [25, M]
+        inv_g = tabg[0:12]
+        trf_g = tabg[12:24]
+        pid_g = torch.where(ok, tabg[24].to(torch.int32), -1)
+        oi = vec.apply_affine(inv_g, o)
+        di = vec.normalize(vec.apply_linear(inv_g, d), eps=1e-30)
+        pl = vec.axpy(a, di, oi)
+        pg = vec.apply_affine(trf_g, pl)
+        cand = HitS(torch.where(ok, dist, _FMAX), pid_g,
+                    torch.where(ok, code, -1).to(torch.int32), dircode,
+                    _full_i32(m, -1, dev), pl, pg)
+        best = _better_soa(best, cand)
+
+    for mi_, prim_index in enumerate(scene.mesh_prim_index):
+        off = scene.mesh_tri_offset[mi_]
+        cnt = scene.mesh_tri_padded[mi_]
+        inv = scene.inv_transfo[prim_index]
+        mtrf = scene.mesh_transfo[prim_index]
+        # one matrix for the whole instance: scalar coefficients over [M]
+        oi = (inv[0, 0] * o[0] + inv[0, 1] * o[1] + inv[0, 2] * o[2]
+              + inv[0, 3],
+              inv[1, 0] * o[0] + inv[1, 1] * o[1] + inv[1, 2] * o[2]
+              + inv[1, 3],
+              inv[2, 0] * o[0] + inv[2, 1] * o[1] + inv[2, 2] * o[2]
+              + inv[2, 3])
+        di = vec.normalize(
+            (inv[0, 0] * d[0] + inv[0, 1] * d[1] + inv[0, 2] * d[2],
+             inv[1, 0] * d[0] + inv[1, 1] * d[1] + inv[1, 2] * d[2],
+             inv[2, 0] * d[0] + inv[2, 1] * d[1] + inv[2, 2] * d[2]),
+            eps=1e-30)
+        tri = pad_tris(scene.tri_va[off:off + cnt],
+                       scene.tri_vb[off:off + cnt],
+                       scene.tri_vc[off:off + cnt])
+        multi = tri.shape[1] > PRIM_CHUNK
+        if cull and multi and m % MESH_TILE == 0:
+            a, row = mesh_best_rows_sparse(
+                torch.stack(oi), torch.stack(di), tri,
+                scene.mesh_chunk_bb[mi_])
+        else:
+            a, row = mesh_best_rows(
+                torch.stack(oi), torch.stack(di), tri,
+                cbb=scene.mesh_chunk_bb[mi_] if (cull and multi) else None,
+                sbb=scene.mesh_super_bb[mi_] if (cull and multi) else None)
+        ok = row >= 0
+        pl = vec.axpy(a, di, oi)
+        pg = (mtrf[0, 0] * pl[0] + mtrf[0, 1] * pl[1] + mtrf[0, 2] * pl[2]
+              + mtrf[0, 3],
+              mtrf[1, 0] * pl[0] + mtrf[1, 1] * pl[1] + mtrf[1, 2] * pl[2]
+              + mtrf[1, 3],
+              mtrf[2, 0] * pl[0] + mtrf[2, 1] * pl[1] + mtrf[2, 2] * pl[2]
+              + mtrf[2, 3])
+        dist = vec.length(vec.sub(o, pg))
+        cand = HitS(torch.where(ok, dist, _FMAX),
+                    torch.where(ok, prim_index, -1).to(torch.int32),
+                    torch.where(ok, CODE_MESH, -1).to(torch.int32),
+                    _full_i32(m, 0, dev),
+                    torch.where(ok, off + row, -1).to(torch.int32),
+                    pl, pg)
+        best = _better_soa(best, cand)
+    return best
+
+
+def _small_group_soa(best: HitS, o, d, code, trf, inv, pid) -> HitS:
+    """Fold a small analytic group: a loop over its prims, each prim's
+    matrix coefficients broadcast over the [M] ray rows. Same winners and
+    order as the kernels (strictly closer, group order)."""
+    fn = SOA_FNS[code]
+    m = o[0].shape[0]
+    dev = o[0].device
+    for i in range(trf.shape[0]):
+        iv = inv[i]
+        tf_ = trf[i]
+        oi = (iv[0, 0] * o[0] + iv[0, 1] * o[1] + iv[0, 2] * o[2] + iv[0, 3],
+              iv[1, 0] * o[0] + iv[1, 1] * o[1] + iv[1, 2] * o[2] + iv[1, 3],
+              iv[2, 0] * o[0] + iv[2, 1] * o[1] + iv[2, 2] * o[2] + iv[2, 3])
+        di = vec.normalize(
+            (iv[0, 0] * d[0] + iv[0, 1] * d[1] + iv[0, 2] * d[2],
+             iv[1, 0] * d[0] + iv[1, 1] * d[1] + iv[1, 2] * d[2],
+             iv[2, 0] * d[0] + iv[2, 1] * d[1] + iv[2, 2] * d[2]),
+            eps=1e-30)
+        a, valid, dircode = fn(oi[0], oi[1], oi[2], di[0], di[1], di[2])
+        valid = valid & (pid[i] >= 0)
+        pl = vec.axpy(a, di, oi)
+        pg = (tf_[0, 0] * pl[0] + tf_[0, 1] * pl[1] + tf_[0, 2] * pl[2]
+              + tf_[0, 3],
+              tf_[1, 0] * pl[0] + tf_[1, 1] * pl[1] + tf_[1, 2] * pl[2]
+              + tf_[1, 3],
+              tf_[2, 0] * pl[0] + tf_[2, 1] * pl[1] + tf_[2, 2] * pl[2]
+              + tf_[2, 3])
+        dist = torch.where(valid, vec.length(vec.sub(o, pg)), _FMAX)
+        cand = HitS(dist, torch.where(valid, pid[i], -1).to(torch.int32),
+                    torch.where(valid, code, -1).to(torch.int32), dircode,
+                    _full_i32(m, -1, dev), pl, pg)
+        best = _better_soa(best, cand)
+    return best

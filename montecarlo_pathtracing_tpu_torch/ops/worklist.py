@@ -4,8 +4,11 @@ Port of montecarlo_pathtracing_tpu/ops/worklist.py:44-91: per-tile
 componentwise ray bundles and the conservative entry distance of each
 bundle into each AABB. The megakernel route uses the entry distance to
 order a tile's super boxes nearest-first (models/megakernel.
-_mega_super_order). The worklist builders and votes of the sparse trace
-kernels are ROADMAP item A.9.
+_mega_super_order), the fused route its super schedules, and the pruned
+walks K5 and K6 their ranked schedules (ops/sparse_trace.py). The
+reference's worklist builders and votes (`bundle_box_votes`,
+`build_worklist`) have no caller in the port: its walks need no
+worklist.
 """
 from __future__ import annotations
 

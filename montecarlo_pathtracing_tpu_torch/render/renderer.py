@@ -51,9 +51,11 @@ class RenderConfig:
     flat_face: bool = False
     detach_sampling: bool = False
     use_kernels: bool = True     # hand-written GPU kernels (CPU: plain)
-    use_megakernel: bool | None = None  # None = auto-route (montecarlo.py)
-    # steers only the pallas-trace route (ROADMAP A.9); kept so configs
-    # and checkpoints carry the reference's fields
+    # None = auto-route (montecarlo.py); False = the pallas-trace route;
+    # True = the megakernel, forced, even with use_kernels off
+    use_megakernel: bool | None = None
+    # the pallas-trace route's kernels: None = auto (the pruned walks K5
+    # and K6 where they apply), False = the brute folds K3a and K4a
     cull_chunks: bool | None = None
     pixel_order: str = "block32"  # "block32" tiles the image into 32x32
     # pixel blocks so each ray tile is screen-compact; "scanline" =
@@ -140,16 +142,35 @@ class Renderer:
         every ray tile, in pass order. The accumulator is updated in place
         (`add_`), so the order of the adds is the reference's."""
         cfg = self.config
+        route = self.route
         for k in range(n_passes):
             for t in range(self._ntiles):
                 rgb = self._integrator(
                     self.scene, self._origin, self._dirs[t], self._tc[t],
                     base_pass + k, nb_bounces=cfg.nb_bounces,
                     refract_ind=cfg.refract_ind, date=cfg.date,
-                    detach_sampling=cfg.detach_sampling,
-                    use_kernels=cfg.use_kernels,
-                    use_megakernel=cfg.use_megakernel)
+                    detach_sampling=cfg.detach_sampling, **route)
                 self._acc[t].add_(rgb)
+
+    @property
+    def route(self) -> dict:
+        """The integrator's routing keywords: the reference renderer's
+        level 0 (render/renderer.py:154-171) with its cull_chunks.
+        use_megakernel True forces the megakernel, kernels on or off (the
+        reference inserts that level whatever use_pallas says). Otherwise,
+        kernels on: use_megakernel None is auto (megakernel or fused
+        route), False the pallas-trace route; kernels off: the dense route.
+        There is no lower level to degrade to: a failure raises."""
+        cfg = self.config
+        kernels = cfg.use_kernels
+        if cfg.use_megakernel:
+            kernels, mega, fused = True, True, False
+        elif not kernels or cfg.use_megakernel is False:
+            mega, fused = False, False
+        else:
+            mega, fused = None, None
+        return dict(use_kernels=kernels, use_megakernel=mega,
+                    use_fused=fused, cull_chunks=cfg.cull_chunks)
 
     def reset(self):
         """Camera move / slider / scene switch analog: clear the FBO and

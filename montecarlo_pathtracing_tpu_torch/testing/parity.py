@@ -70,6 +70,73 @@ def assert_fused_protocol(ref, got, what: str = "",
             f"{frac}), max abs error {err:.3e}")
 
 
+TRACE_RTOL = 1e-5
+TRACE_MIN_EQUAL = 0.99
+
+
+def trace_match(ref_dist, ref_row, got_dist, got_row, rtol=TRACE_RTOL):
+    """Winners of two closest-hit folds over the same rays: (share of
+    rays with the same winner row, rays whose rows differ although their
+    distances do not agree to rtol, max relative and max absolute
+    difference of the distances where both hit). Distances are world
+    distances (K3a, K5) or local ray parameters (K4a, K6); a miss is
+    row -1."""
+    rd = np.asarray(ref_dist, np.float64)
+    gd = np.asarray(got_dist, np.float64)
+    rr = np.asarray(ref_row)
+    gr = np.asarray(got_row)
+    same = rr == gr
+    both = (rr >= 0) & (gr >= 0)
+    diff = np.abs(rd - gd)
+    rel = np.where(both, diff / np.maximum(np.abs(rd), 1e-30), 0.0)
+    # a differing winner is a tie or a last-ulp flip only if both hit at
+    # the same distance
+    bad = ~same & ~(both & (rel <= rtol))
+    return (float(same.mean()), int(bad.sum()),
+            float(rel.max()) if rel.size else 0.0,
+            float(np.where(both, diff, 0.0).max()) if diff.size else 0.0)
+
+
+def assert_trace_protocol(ref, got, what: str = "", rtol=TRACE_RTOL):
+    """ref, got: (dist, row) pairs. Winner rows equal on at least
+    TRACE_MIN_EQUAL of the rays, distances within rtol relative wherever
+    both hit, and a differing row only where both distances agree (exact
+    ties and last-ulp flips between neighbours)."""
+    frac, bad, rel, _ = trace_match(ref[0], ref[1], got[0], got[1], rtol)
+    if frac < TRACE_MIN_EQUAL or bad or rel > rtol:
+        raise AssertionError(
+            f"{what}: rows equal on {frac:.5f} of rays (need "
+            f">= {TRACE_MIN_EQUAL}), {bad} differing rows without equal "
+            f"distances, max relative distance error {rel:.2e} (allowed "
+            f"{rtol})")
+
+
+def random_group(tf, code, n_prims, seed):
+    """A random homogeneous group as the reference's trace tests build it
+    (tests/test_pallas_trace.py:14-25), from the given package's
+    `utils.transforms`: (transfo [n,4,4], inverse [n,4,4], sparse scene
+    ids [n]) as numpy. `code` only seeds the draw, as there."""
+    rs = np.random.RandomState(seed)
+    trf = np.zeros((n_prims, 4, 4), np.float32)
+    inv = np.zeros((n_prims, 4, 4), np.float32)
+    for i in range(n_prims):
+        m = (tf.translate(*rs.uniform(-50, 50, 3))
+             @ tf.rotate(rs.uniform(0, 360), rs.uniform(0.1, 1, 3))
+             @ tf.scale(*rs.uniform(0.5, 8.0, 3)))
+        trf[i] = m
+        inv[i] = tf.inverse(m)
+    return trf, inv, np.arange(n_prims, dtype=np.int32) * 3 + 1
+
+
+def random_rays(m, seed, lo=-80.0, hi=80.0):
+    """m rays with uniform origins in [lo, hi]^3 and unit directions, as
+    [3, m] float32 numpy rows (o, d)."""
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(lo, hi, (3, m)).astype(np.float32)
+    d = rs.normal(size=(3, m)).astype(np.float32)
+    return o, (d / np.linalg.norm(d, axis=0, keepdims=True)).astype(np.float32)
+
+
 def all_shapes_scene(scene_mod, tf):
     """A scene that drives every branch of the megakernel: all five shape
     codes, transparent and mixed materials (the refraction re-trace) and,

@@ -385,9 +385,12 @@ def test_zero_bounces_black_in_both_modes():
 
 
 def test_raytrace_routes_mesh_scenes_to_fused(slice_runs):
-    """raytrace(use_kernels=True) on mesh_demo is raytrace_fused; a forced
-    megakernel never takes the fused route, and the unported routes raise
-    naming their ROADMAP items."""
+    """raytrace(use_kernels=True) on mesh_demo is raytrace_fused; with
+    the fused route off it takes the pallas-trace route, whose image is
+    the fused route's under the fused protocol (the same integrator and
+    RNG streams over other kernels); a forced megakernel never takes the
+    fused route, and the unported dense route raises naming its ROADMAP
+    item."""
     _, dev = _scenes("mesh_demo")
     o, d, tc = (torch.as_tensor(a) for a in _rays())
     via = raytrace(dev, o, d, tc, PASS, nb_bounces=4, refract_ind=1.3,
@@ -395,9 +398,10 @@ def test_raytrace_routes_mesh_scenes_to_fused(slice_runs):
     np.testing.assert_array_equal(via.numpy(), slice_runs["mesh_demo"][1])
     with pytest.raises(NotImplementedError, match="A.7"):
         raytrace(dev, o, d, tc, PASS, nb_bounces=4, refract_ind=1.3)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        raytrace(dev, o, d, tc, PASS, nb_bounces=4, refract_ind=1.3,
-                 use_kernels=True, use_fused=False)
+    trace_route = raytrace(dev, o, d, tc, PASS, nb_bounces=4, refract_ind=1.3,
+                           use_kernels=True, use_fused=False).numpy()
+    assert np.isfinite(trace_route).all() and (trace_route >= 0).all()
+    assert_fused_protocol(via.numpy(), trace_route, "pallas-trace route")
     forced = raytrace(dev, o, d, tc, PASS, nb_bounces=2, refract_ind=1.3,
                       use_kernels=True, use_megakernel=True)
     np.testing.assert_array_equal(
