@@ -4,12 +4,12 @@ against its plain PyTorch version, and drive every ported path once.
     python3 chip_smoke.py
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
-and prints no result, without them. Phases (about 7 minutes in all on an
+and prints no result, without them. Phases (about 8 minutes in all on an
 H100, the builds included):
 
 1. the card's name and power limit; build K1 (csrc/megakernel.cu), K2
-   (csrc/bounce_kernel.cu) and the trace kernels K3a, K4a, K5, K6
-   (csrc/trace_kernels.cu), one nvcc each, started together, and print
+   (csrc/bounce_kernel.cu) and the trace kernels K3a, K3b, K4a, K4b, K5,
+   K6 (csrc/trace_kernels.cu), one nvcc each, started together, and print
    the compile reports (registers, spills);
 2. K1 against its plain version (models/megakernel.mega_pass_reference)
    on the card, 64x48 pixels, 4 bounces, passes 0 and 3, under the
@@ -42,11 +42,16 @@ H100, the builds included):
 6. a short window of K2's whole-path mode: stress_10k at 800x600, 3
    bounces;
 7. each trace kernel against its plain version on the card under the
-   trace protocol (testing/parity.py): K3a on a random 200-prim group of
-   each shape code (2048 rays); K5 and K3a on colonnes' two large groups,
-   K6 and K4a on each mesh_demo instance (one 1<<17 ray tile each) and on
-   mesh_hires's 796-chunk sphere (8192 rays); and K5 against K3a, K6
-   against K4a on the same rays (tests/test_sparse_trace.py:27-54);
+   trace protocol (testing/parity.py; K3b and K4b: rows equal on 99.99%
+   of rays, distances bit for bit): K3a on a random 200-prim group and K3b
+   on a random 300-prim group with chunk boxes of each shape code (2048
+   rays); K5, K3a and K3b on colonnes' two large groups, K6, K4a and K4b
+   (the op mesh_best_rows with leaf and super boxes: K4b's path, which no
+   render route reaches) on each mesh_demo instance (one 1<<17 ray tile
+   each) and on mesh_hires's 796-chunk sphere (8192 rays; K4b also with
+   sbb=None); and K5 and K3b against K3a, K6 and K4b against K4a on the
+   same rays (tests/test_sparse_trace.py:27-54); K4b's time, work and
+   bound over those launches;
 8. the pallas-trace route (models.montecarlo.raytrace with the
    megakernel and the fused route off) with the kernels against the
    route with their plain versions, 64x48, 4 bounces, passes 0 and 3, on
@@ -66,9 +71,18 @@ H100, the builds included):
    launch counts, the image against the culled route's under the fused
    protocol, and K4a's and K3a's times, bounds and plain versions as in
    phase 9;
-11. the trace kernels built with FMA contraction (without kernels.
+11. the large scene: scenes.scene_stress(n_prims=200_000) through
+   compile_scene and Renderer.advance with use_megakernel=False, 800x600,
+   3 bounces, a 1-pass window: its 150,016-prim sphere group takes K3b
+   (12 launches per pass), its cube group K5 (12); the host time of the
+   build and the compile, the image, rays/s, one tile call's idle share,
+   K3b's time by launch, pass and bounce with its work and bound, 2
+   full-size K3b launches against the plain version and K3a, and K3b's
+   chunk-box scan alone (rays that enter no box);
+12. the trace kernels built with FMA contraction (without kernels.
    EXTRA_FLAGS' -fmad=false) against the default build, on the recorded
-   launches of phases 9 and 10: time per launch and the distances' move.
+   launches of phases 7 and 9-11: time per launch and the distances'
+   move.
 
 The last three lines are a {"kernels": [...]} JSON object, the card's
 name and power limit, and the {"ok": true, "device": {...}} JSON object.
@@ -94,6 +108,7 @@ from montecarlo_pathtracing_tpu_torch.ops import sparse_trace as spk
 from montecarlo_pathtracing_tpu_torch.ops import trace as trace_mod
 from montecarlo_pathtracing_tpu_torch.ops.rng import seed_y
 from montecarlo_pathtracing_tpu_torch.ops.sort_rays import ray_sort_key
+from montecarlo_pathtracing_tpu_torch.ops.vec import safe_rcp
 from montecarlo_pathtracing_tpu_torch.render.camera import (
     default_rt_camera, camera_rays)
 from montecarlo_pathtracing_tpu_torch.render.renderer import (
@@ -105,8 +120,8 @@ from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
 from montecarlo_pathtracing_tpu_torch.testing.parity import (
     FUSED_FRAC, FUSED_FRAC_STRESS, all_shapes_scene, assert_fused_protocol,
     assert_megakernel_protocol, assert_trace_protocol, cull_mesh_scene,
-    fused_match, megakernel_match, opaque_mesh_scene, random_group,
-    random_rays, trace_match)
+    fused_match, group_chunk_boxes, megakernel_match, opaque_mesh_scene,
+    random_group, random_rays, trace_match)
 from montecarlo_pathtracing_tpu_torch.utils import transforms
 
 K1_SOURCE = "montecarlo_pathtracing_tpu_torch/csrc/megakernel.cu"
@@ -120,9 +135,15 @@ TRACE_KERNELS = {
     "K3a": ("K3a group_kernel",
             "montecarlo_pathtracing_tpu/ops/pallas_trace.py:162",
             "group_kernel"),
+    "K3b": ("K3b group_culled_kernel",
+            "montecarlo_pathtracing_tpu/ops/pallas_trace.py:251",
+            "group_culled_kernel"),
     "K4a": ("K4a tri_kernel",
             "montecarlo_pathtracing_tpu/ops/pallas_trace.py:497",
             "tri_kernel"),
+    "K4b": ("K4b tri_culled_kernel",
+            "montecarlo_pathtracing_tpu/ops/pallas_trace.py:543",
+            "tri_culled_kernel"),
     "K5": ("K5 an_walk", "montecarlo_pathtracing_tpu/ops/sparse_trace.py:139",
            "an_walk"),
     "K6": ("K6 mesh_walk",
@@ -130,9 +151,15 @@ TRACE_KERNELS = {
            "mesh_walk"),
 }
 # each trace kernel's wrapper, which counts its launches
-TRACE_WRAPPERS = {"K3a": ptk.group_best_rows, "K4a": ptk.mesh_best_rows,
+TRACE_WRAPPERS = {"K3a": ptk.group_best_rows,
+                  "K3b": ptk.group_best_rows_culled,
+                  "K4a": ptk.mesh_best_rows,
+                  "K4b": ptk.mesh_best_rows_culled,
                   "K5": spk.group_best_rows_sparse,
                   "K6": spk.mesh_best_rows_sparse}
+# work counters per launch: tests, chunks or blocks visited, hits; the
+# culled kernels add box tests (K3b, K4b) and supers entered (K4b)
+N_WORK = {"K3b": 4, "K4b": 5}
 
 PARITY_CASES = (("box_diffuse", 1.0), ("box_balls", 1.3), ("materials", 1.5),
                 ("all_shapes", 1.3))
@@ -147,20 +174,21 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations (a multiply, add, divide or square root each; an FMA
 # two), counted from the kernels' source (common.cuh prim_work,
-# bounce_step, mt_hit; bounce_kernel.cu slab_cap), of one ray's test of
-# one prim by shape code in K1 and K2 (local frame, shape test, and the
-# hit point and normal where it hits), one bounce step's shading, one
-# Moller-Trumbore test and one slab test
-PRIM_OPS = {1: 70, 2: 130, 3: 110, 4: 120, 5: 60}
+# bounce_step, mt_hit, slab_cap; trace_kernels.cu prim_hit): one bounce
+# step's shading, one Moller-Trumbore test and one slab test
 SHADE_OPS = 150
 TRI_OPS = 51
 BOX_OPS = 25
-# the trace kernels' ray-prim test (csrc/trace_kernels.cu prim_hit): the
-# local frame (affine, linear, vnorm) and the shape test for every test,
-# the hit point and world distance only where the shape test passes
+# a ray-prim test: the local frame (affine, linear, vnorm) and the shape
+# test by shape code for every test; the hit point and world distance
+# only where the shape test passes; the shading normal (normal_point, the
+# forward affine, vnorm) only for a winner (K1, K2)
 FRAME_OPS = 42
 SHAPE_OPS = {1: 24, 2: 36, 3: 36, 4: 44, 5: 5}
+PRIM_OPS = {code: FRAME_OPS + ops for code, ops in SHAPE_OPS.items()}
 HIT_OPS = 33
+NORMAL_OPS = 35
+WIN_OPS = HIT_OPS + NORMAL_OPS
 
 
 def card() -> str:
@@ -179,7 +207,8 @@ def bound(nbytes: float, ops: float):
 
 
 def table_ops(tab, groups):
-    """FP32 operations of one ray's test of every real prim of a table."""
+    """FP32 operations of one ray's test of every real prim of a table:
+    the local frame and the shape test of each (PRIM_OPS)."""
     ok = (tab[31] > 0).cpu().numpy()
     return sum(PRIM_OPS[code] * int(ok[start:start + count].sum())
                for code, start, count, _ in groups)
@@ -326,13 +355,19 @@ def phase_main_path(device, w=800, h=600, bounces=3, window=64,
     k1_ms = _time_passes(
         lambda k: [mk.k1_launch(inp, seed_y(k), bounces) for inp in inps], 20)
     # bound of one pass: every ray in flight tests every real prim and
-    # shades once per bounce; 20 bytes in and 12 out per ray
-    ops = sum(alive) * (table_ops(inps[0].tab, inps[0].groups) + SHADE_OPS)
+    # shades once per bounce; a ray in flight at the next bounce hit
+    # something (a miss or a light ends its path), so it needs at least one
+    # hit point and normal (the least: hits on lights are not counted);
+    # 20 bytes in and 12 out per ray
+    hits = sum(alive[t * bounces + b] for t in range(len(inps))
+               for b in range(1, bounces))
+    ops = (sum(alive) * (table_ops(inps[0].tab, inps[0].groups) + SHADE_OPS)
+           + hits * WIN_OPS)
     nbytes = sum(inp.dirs.shape[0] for inp in inps) * 32
     bound_ms, bound_by = bound(nbytes, ops)
     print(f"K1 bound per pass {bound_ms:.4f} ms ({bound_by}: {ops:.4g} FP32 "
-          f"operations over {sum(alive)} ray-bounces, {nbytes} bytes)",
-          flush=True)
+          f"operations over {sum(alive)} ray-bounces and {hits} winners, "
+          f"{nbytes} bytes)", flush=True)
     return dict(rays_per_s=rays_per_s, window_s=window_s, launches=launches,
                 k1_ms=k1_ms, plain_ms=plain_ms, max_abs_err=err,
                 bound_ms=bound_ms, bound_by=bound_by)
@@ -419,18 +454,24 @@ def _lane_share(work):
     return f"{(work[0] + work[2]) / work[4]:.4f}" if work[4] else "none"
 
 
-def _k2_bound(rec, work):
+def _k2_bound(rec, work, bounces):
     """Least ms the card could take for the recorded pass's K2 work: the
-    tests K2 did (work counters) and the small table per trace, one
-    shading step per ray in flight at each launch; each launch reads its
+    tests K2 did (work counters: the local frame and shape test of each
+    prim test) and the small table per trace, one shading step per ray in
+    flight at each launch, and one hit point and normal per ray that is
+    still in flight at the tile's next bounce (it hit something; rec
+    holds each tile's `bounces` launches in order); each launch reads its
     state and tables once and writes its state once."""
     tri, box, prim, traces, _slots = work
     inp0 = rec[0][0]
-    steps = sum(int((sti[0] == 0).sum()) for _, _, sti, _ in rec)
+    alive = [int((sti[0] == 0).sum()) for _, _, sti, _ in rec]
+    steps = sum(alive)
+    hits = sum(a for i, a in enumerate(alive) if i % bounces)
     ana_ops = (np.mean([PRIM_OPS[g[0]] for g in inp0.ana_groups])
                if inp0.ana_groups else 0.0)
     ops = (TRI_OPS * tri + BOX_OPS * box + ana_ops * prim
-           + traces * table_ops(inp0.tab, inp0.groups) + SHADE_OPS * steps)
+           + traces * table_ops(inp0.tab, inp0.groups) + SHADE_OPS * steps
+           + WIN_OPS * hits)
     tables = (inp0.tab, inp0.gsbb, inp0.msc, inp0.cbb, inp0.sbb, inp0.tpool,
               inp0.acbb, inp0.asbb, inp0.apool, inp0.agr)
     table_bytes = sum(t.numel() * t.element_size() for t in tables)
@@ -487,7 +528,7 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
     # K2 alone, by CUDA events over one recorded pass's launches
     rec = _record_pass(r, r.nb_passes)
     ms_launch, ms_pass, work, ms_call = _time_launches(rec)
-    bound_ms, bound_by, ops, nbytes, steps = _k2_bound(rec, work)
+    bound_ms, bound_by, ops, nbytes, steps = _k2_bound(rec, work, bounces)
     print(f"K2 alone: {ms_launch:.4f} ms per launch, {ms_pass:.4f} ms per "
           f"pass ({len(rec)} launches); work per pass: {work[0]} "
           f"ray-triangle tests, {work[1]} ray-box tests, {work[3]} traces, "
@@ -613,12 +654,15 @@ def plain_trace_kernels():
     kernels."""
     def k3a(o, d, code, inv_r, trf_r, pid, cbb=None):
         if cbb is not None:
-            raise NotImplementedError("K3b is not ported")
+            return ptk.group_best_rows_culled_plain(o, d, code, inv_r, trf_r,
+                                                    pid, cbb)
         return ptk.group_best_rows_plain(o, d, code, inv_r, trf_r, pid)
 
     def k4a(o, d, tri, cbb=None, sbb=None):
-        if cbb is not None or sbb is not None:
-            raise NotImplementedError("K4b is not ported")
+        if cbb is not None:
+            return ptk.mesh_best_rows_culled_plain(
+                o, d, tri, *((cbb, sbb) if sbb is not None
+                             else ptk.super_boxes(cbb)))
         return ptk.mesh_best_rows_plain(o, d, tri)
 
     def k5(o, d, code, inv_r, trf_r, pid, sup_bb):
@@ -640,11 +684,14 @@ def plain_trace_kernels():
             setattr(trace_mod, name, fn)
 
 
-# where each trace kernel is launched from: (module, function); K5 and K6
-# by their launch functions, so that a recorded call holds the kernel's
-# own inputs (the ranked schedule and bounds included)
+# where each trace kernel is launched from: (module, function); K3b,
+# K4b, K5 and K6 by their launch functions, so that a recorded call holds
+# the kernel's own inputs (K4b's super boxes, K5's and K6's ranked
+# schedule and bounds included)
 _LAUNCH_SITES = {"K3a": (trace_mod, "group_best_rows"),
+                 "K3b": (ptk, "group_best_culled"),
                  "K4a": (trace_mod, "mesh_best_rows"),
+                 "K4b": (ptk, "mesh_best_culled"),
                  "K5": (spk, "an_fold"), "K6": (spk, "mesh_fold")}
 
 
@@ -652,8 +699,12 @@ def _plain_of(kid, args):
     """The plain version of recorded launch args of kernel kid."""
     if kid == "K3a":
         return ptk.group_best_rows_plain(*args[:6])
+    if kid == "K3b":
+        return ptk.group_best_rows_culled_plain(*args[:7])
     if kid == "K4a":
         return ptk.mesh_best_rows_plain(*args[:3])
+    if kid == "K4b":
+        return ptk.mesh_best_rows_culled_plain(*args[:5])
     if kid == "K5":
         return spk.an_fold_plain(*args[:7])
     return spk.mesh_fold_plain(*args[:6])
@@ -679,23 +730,30 @@ def record_launches(kid, rec):
 
 def _needed(kid, args, out, work):
     """The work one launch's function needs on its inputs, as int64
-    device scalars (tests, hits): the tests that cost FRAME_OPS plus
-    SHAPE_OPS (K3a, K5) or TRI_OPS each (K4a, K6), and the hits that cost
-    HIT_OPS more (K3a, K5). A brute fold (K3a, K4a) tests every ray
+    device scalars (tests, hits, box tests): the tests that cost FRAME_OPS
+    plus SHAPE_OPS (K3a, K3b, K5) or TRI_OPS each (K4a, K4b, K6), the hits
+    that cost HIT_OPS more (K3a, K3b, K5), and the slab tests that cost
+    BOX_OPS each (K3b, K4b). A brute fold (K3a, K4a) tests every ray
     against every real prim or triangle; K3a's hits are its counted
-    shape-test passes, the same for any order of that fold. A walk (K5,
-    K6) must fold, for each ray, every block or chunk of its tile's ranked
-    list whose entry bound lies below the ray's final min(best, bound):
-    any of them could hold a closer hit. K5's hits are counted once per
-    ray with a winner, the least any fold needs. `out` is the launch's
-    result, `work` its counters."""
+    shape-test passes, the same for any order of that fold. A culled fold
+    tests every ray against every real chunk box (K3b) or every super box
+    and, in the supers the ray enters within its final best, every real
+    leaf box (K4b), and must fold the chunks whose box the ray enters
+    within its final best (_culled_needed). A walk (K5, K6) must fold,
+    for each ray, every block or chunk of its tile's ranked list whose
+    entry bound lies below the ray's final min(best, bound): any of them
+    could hold a closer hit. K3b's and K5's hits are counted once per ray
+    with a winner, the least any fold needs. `out` is the launch's result,
+    `work` its counters."""
     o = args[0]
     zero = torch.zeros((), dtype=torch.int64, device=o.device)
     if kid == "K3a":
-        return work[0], work[2]
+        return work[0], work[2], zero
     if kid == "K4a":
         tri = args[2]
-        return o.shape[1] * (tri != 0).any(dim=0).sum(), zero
+        return o.shape[1] * (tri != 0).any(dim=0).sum(), zero, zero
+    if kid in ("K3b", "K4b"):
+        return _culled_needed(kid, args, out)
     if kid == "K5":
         tab, order, tlo_sorted, bound = args[2:6]
         per_unit = (tab[:, 24, :] > 0).sum(dim=1)
@@ -711,16 +769,49 @@ def _needed(kid, args, out, work):
     cum = torch.cat([torch.zeros((nt, 1), dtype=torch.int64, device=o.device),
                      per_unit[order.long()].cumsum(dim=1)], dim=1)
     tests = cum.gather(1, need).sum()
-    return tests, ((out[1] >= 0).sum() if kid == "K5" else zero)
+    return tests, ((out[1] >= 0).sum() if kid == "K5" else zero), zero
 
 
-def _needed_ops(kid, args, tests, hits):
-    """FP32 operations of `tests` tests and `hits` hits of kernel kid's
-    recorded launch."""
-    if kid in ("K4a", "K6"):
-        return TRI_OPS * tests
-    code = args[2] if kid == "K3a" else args[6]
-    return (FRAME_OPS + SHAPE_OPS[code]) * tests + HIT_OPS * hits
+def _enters(o, rd, boxes, best, step=64):
+    """[M, n] whether each ray enters each box column of boxes [6, n]
+    within its best (the kernels' slab test), `step` boxes at a time."""
+    cols = [ptk._slab_enters(o[:, :, None], rd[:, :, None],
+                             boxes[:, None, c:c + step], best[:, None])
+            for c in range(0, boxes.shape[1], step)]
+    return torch.cat(cols, dim=1)
+
+
+def _culled_needed(kid, args, out):
+    """_needed of K3b and K4b, from the launch's final best."""
+    o, d = args[0], args[1]
+    rd = safe_rcp(d)
+    best = out[0]
+    if kid == "K3b":
+        pid, cbb = args[5], args[6]
+        per_chunk = (pid[0] >= 0).reshape(-1, ptk.PRIM_CHUNK).sum(dim=1)
+        real = per_chunk > 0
+        tests = (_enters(o, rd, cbb[:, real], best).to(torch.int64)
+                 * per_chunk[real][None, :]).sum()
+        return tests, (out[1] >= 0).sum(), o.shape[1] * real.sum()
+    tri, cbb, sbb = args[2:5]
+    nreal = tri.shape[1] // ptk.PRIM_CHUNK
+    per_chunk = (tri != 0).any(dim=0).reshape(nreal, ptk.PRIM_CHUNK).sum(dim=1)
+    sup = _enters(o, rd, sbb, best)                          # [M, nsuper]
+    leaf_sup = sup.repeat_interleave(ptk.TRI_SUPER, dim=1)[:, :nreal]
+    leaf = _enters(o, rd, cbb[:, :nreal], best) & leaf_sup
+    tests = (leaf.to(torch.int64) * per_chunk[None, :]).sum()
+    boxes = o.shape[1] * sbb.shape[1] + leaf_sup.sum()
+    return tests, torch.zeros_like(tests), boxes
+
+
+def _needed_ops(kid, args, tests, hits, boxes):
+    """FP32 operations of `tests` tests, `hits` hits and `boxes` slab
+    tests of kernel kid's recorded launch."""
+    if kid in ("K4a", "K4b", "K6"):
+        return TRI_OPS * tests + BOX_OPS * boxes
+    code = args[2] if kid in ("K3a", "K3b") else args[6]
+    return (FRAME_OPS + SHAPE_OPS[code]) * tests + HIT_OPS * hits \
+        + BOX_OPS * boxes
 
 
 def _launch_bytes(kid, args):
@@ -735,11 +826,13 @@ def _launch_bytes(kid, args):
 def _time_recorded(kid, rec, reps=2):
     """Kernel kid over the recorded launches of one pass, by CUDA events
     around each launch: (ms of each launch, averaged over reps; the
-    launch's work counters [tests, chunks or blocks visited, hits]; the
-    work its function needs [tests, hits], see _needed)."""
+    launch's work counters [tests, chunks or blocks visited, hits, and
+    N_WORK's more]; the work its function needs [tests, hits, box tests],
+    see _needed)."""
     dev = rec[0][1][0].device
-    work = torch.zeros((len(rec), 3), dtype=torch.int64, device=dev)
-    needed = torch.zeros((len(rec), 2), dtype=torch.int64, device=dev)
+    work = torch.zeros((len(rec), N_WORK.get(kid, 3)), dtype=torch.int64,
+                       device=dev)
+    needed = torch.zeros((len(rec), 3), dtype=torch.int64, device=dev)
     events = []
     for rep in range(reps):
         for i, (real, args, kw) in enumerate(rec):
@@ -757,12 +850,15 @@ def _time_recorded(kid, rec, reps=2):
             needed.cpu().numpy())
 
 
-def _plain_vs_kernel(kid, rec, n=8):
+def _plain_vs_kernel(kid, rec, n=8, sub=None):
     """Kernel kid against its plain version on a subset of n recorded
-    full-size launches (every k-th of the pass): both outputs under the
-    trace protocol, and each side's mean ms per launch by CUDA events.
-    Returns (plain ms, kernel ms on the same launches, max abs error)."""
-    sub = rec[::max(1, len(rec) // n)]
+    full-size launches (every k-th of the pass, or the launches `sub`):
+    both outputs under the trace protocol (K3b and K4b: rows equal on
+    EXACT_ROWS of the rays, distances bit-equal), and each side's mean ms
+    per launch by CUDA events. Returns (plain ms, kernel ms on the same
+    launches, max abs error)."""
+    if sub is None:
+        sub = rec[::max(1, len(rec) // n)]
     plain_ms, kern_ms, err = [], [], 0.0
     for real, args, kw in sub:
         e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -775,9 +871,13 @@ def _plain_vs_kernel(kid, rec, n=8):
         torch.cuda.synchronize()
         kern_ms.append(e[0].elapsed_time(e[1]))
         plain_ms.append(e[2].elapsed_time(e[3]))
+        what = f"{kid} full-size launch vs plain"
+        if kid in ("K3b", "K4b"):
+            err = max(err, _check_exact(what, ref, got))
+            continue
         ref2 = (ref[0].cpu().numpy(), ref[1].cpu().numpy())
         got2 = (got[0].cpu().numpy(), got[1].cpu().numpy())
-        assert_trace_protocol(ref2, got2, f"{kid} full-size launch vs plain")
+        assert_trace_protocol(ref2, got2, what)
         err = max(err, trace_match(*ref2, *got2)[3])
     print(f"{kid} full size vs plain on {len(sub)} launches of the pass: "
           f"plain {np.mean(plain_ms):.3f} ms per launch, {kid} "
@@ -833,16 +933,43 @@ def _instance_tris(dev, mi):
                         dev.tri_vc[off:off + cnt])
 
 
+# K3b and K4b against their plain versions: rows equal on this share of
+# rays at least, and distances bit for bit where rows are equal (the
+# trace kernels are built without FMA contraction, kernels.EXTRA_FLAGS)
+EXACT_ROWS = 0.9999
+
+
+def _check_exact(what, ref, got):
+    """_check_trace, and rows equal on EXACT_ROWS of the rays with equal
+    distances where the rows are equal."""
+    err = _check_trace(what, ref, got)
+    rr, gr = ref[1].cpu().numpy(), got[1].cpu().numpy()
+    same = rr == gr
+    if same.mean() < EXACT_ROWS or not np.array_equal(
+            ref[0].cpu().numpy()[same], got[0].cpu().numpy()[same]):
+        raise AssertionError(f"{what}: rows equal on {same.mean():.6f} of "
+                             f"rays (need {EXACT_ROWS}) or distances not "
+                             f"bit-equal where rows are")
+    return err
+
+
 def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
     """Each trace kernel against its plain version on the card, and the
-    pruned walks against the brute folds on the same rays (the
-    reference's invariant, tests/test_sparse_trace.py:27-54)."""
+    pruned walks and culled folds against the brute folds on the same rays
+    (the reference's invariants, tests/test_sparse_trace.py:27-54 and
+    tests/test_pallas_trace.py:138-189). The K4b calls here are its path:
+    no route of the renderer reaches it (ops/trace.py), the op
+    mesh_best_rows(cbb=..., sbb=...) does, and this drives it as the
+    reference's TPU smoke does (testing/tpu_smoke.py:87-110). Returns the
+    worst max abs error per kernel, K4b's recorded launches and its launch
+    count over them."""
     worst = {k: 0.0 for k in TRACE_KERNELS}
-    # K3a: one random ~200-prim group per shape code, two ray tiles
+    # K3a on a random ~200-prim group per shape code, K3b on a 300-prim one
+    # with its chunk boxes; two ray tiles
     o_np, d_np = random_rays(2048, 7)
     o = torch.as_tensor(o_np, device=device)
     d = torch.as_tensor(d_np, device=device)
-    for code in sorted(PRIM_OPS):
+    for code in sorted(SHAPE_OPS):
         trf, inv, pid = (torch.as_tensor(a, device=device) for a in
                          random_group(transforms, code, 200, 100 * code + 200))
         tables = ptk._pad_group(trf, inv, pid)
@@ -850,8 +977,17 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
         ref = ptk.group_best_rows_plain(o, d, code, *tables)
         worst["K3a"] = max(worst["K3a"], _check_trace(
             f"K3a shape {code} vs plain", ref, got))
+        trf, inv, pid = random_group(transforms, code, 300, 100 * code + 300)
+        tables = ptk._pad_group(*(torch.as_tensor(a, device=device)
+                                  for a in (trf, inv, pid)))
+        cbb = torch.as_tensor(group_chunk_boxes(trf, tables[0].shape[1]),
+                              device=device)
+        got = ptk.group_best_rows(o, d, code, *tables, cbb=cbb)
+        ref = ptk.group_best_rows_culled_plain(o, d, code, *tables, cbb)
+        worst["K3b"] = max(worst["K3b"], _check_exact(
+            f"K3b shape {code} (300 prims) vs plain", ref, got))
 
-    # K5 (and K3a) on colonnes' two large groups, one 1<<17 ray tile
+    # K5, K3a and K3b on colonnes' two large groups, one 1<<17 ray tile
     dev = compile_scene(scenes.build("colonnes", 0.4), device=device)
     o, d = _mixed_rays(dev, 1920, 1080, tile_rays, 11)
     for gi, code in enumerate(dev.group_codes):
@@ -859,42 +995,92 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
             continue
         tables = ptk._pad_group(dev.group_transfo[gi], dev.group_inv[gi],
                                 dev.group_prim[gi])
-        sbb = dev.group_super_bb[gi]
+        sbb, cbb = dev.group_super_bb[gi], dev.group_chunk_bb[gi]
         k5 = spk.group_best_rows_sparse(o, d, code, *tables, sbb)
         p5 = spk.an_fold_plain(o, d, *spk.an_inputs(o, d, *tables, sbb), code)
         k3 = ptk.group_best_rows(o, d, code, *tables)
         p3 = ptk.group_best_rows_plain(o, d, code, *tables)
+        k3b = ptk.group_best_rows(o, d, code, *tables, cbb=cbb)
+        p3b = ptk.group_best_rows_culled_plain(o, d, code, *tables, cbb)
         tag = f"colonnes group {gi} (shape {code}, {tables[0].shape[1]} prims)"
         worst["K5"] = max(worst["K5"], _check_trace(f"K5 {tag} vs plain",
                                                     p5, k5))
         worst["K3a"] = max(worst["K3a"], _check_trace(f"K3a {tag} vs plain",
                                                       p3, k3))
+        worst["K3b"] = max(worst["K3b"], _check_exact(f"K3b {tag} vs plain",
+                                                      p3b, k3b))
         _check_trace(f"K5 vs K3a {tag}", k3, k5)
+        _check_trace(f"K3b vs K3a {tag}", k3, k3b)
+        _check_trace(f"K3b vs K5 {tag}", k5, k3b)
 
-    # K4a and K6 on each mesh_demo instance at one 1<<17 ray tile, and on
-    # mesh_hires's sphere at 8192 rays (the brute plain fold stays cheap)
-    for name, m in (("mesh_demo", tile_rays), ("mesh_hires", hires_rays)):
-        dev = compile_scene(scenes.build(name), device=device)
-        o, d = _mixed_rays(dev, 800, 600, m, 13)
-        for mi in range(len(dev.mesh_prim_index)):
-            if name == "mesh_hires" and mi > 0:
-                break
-            oi, di = _local_rays(dev, mi, o, d)
-            tri = _instance_tris(dev, mi)
-            cbb = dev.mesh_chunk_bb[mi]
-            k6 = spk.mesh_best_rows_sparse(oi, di, tri, cbb)
-            p6 = spk.mesh_fold_plain(oi, di, tri,
-                                     *spk.mesh_inputs(oi, di, tri, cbb))
-            k4 = ptk.mesh_best_rows(oi, di, tri)
-            p4 = ptk.mesh_best_rows_plain(oi, di, tri)
-            tag = f"{name} instance {mi} ({tri.shape[1] // 128} chunks, {m} rays)"
-            worst["K6"] = max(worst["K6"], _check_trace(f"K6 {tag} vs plain",
-                                                        p6, k6))
-            worst["K4a"] = max(worst["K4a"], _check_trace(
-                f"K4a {tag} vs plain", p4, k4))
-            _check_trace(f"K6 vs K4a {tag}", k4, k6)
+    # K4a, K4b and K6 on each mesh_demo instance at one 1<<17 ray tile (K4b
+    # with the instance's super boxes), and on mesh_hires's sphere at 8192
+    # rays (the brute plain fold stays cheap; K4b with and without them)
+    rec4b = []
+    TRACE_WRAPPERS["K4b"].launches = 0
+    with record_launches("K4b", rec4b):
+        for name, m in (("mesh_demo", tile_rays), ("mesh_hires", hires_rays)):
+            dev = compile_scene(scenes.build(name), device=device)
+            o, d = _mixed_rays(dev, 800, 600, m, 13)
+            for mi in range(len(dev.mesh_prim_index)):
+                if name == "mesh_hires" and mi > 0:
+                    break
+                oi, di = _local_rays(dev, mi, o, d)
+                tri = _instance_tris(dev, mi)
+                cbb, sbb = dev.mesh_chunk_bb[mi], dev.mesh_super_bb[mi]
+                k6 = spk.mesh_best_rows_sparse(oi, di, tri, cbb)
+                p6 = spk.mesh_fold_plain(oi, di, tri,
+                                         *spk.mesh_inputs(oi, di, tri, cbb))
+                k4 = ptk.mesh_best_rows(oi, di, tri)
+                p4 = ptk.mesh_best_rows_plain(oi, di, tri)
+                tag = (f"{name} instance {mi} ({tri.shape[1] // 128} chunks "
+                       f"under {cbb.shape[1]} leaf boxes, {m} rays)")
+                worst["K6"] = max(worst["K6"], _check_trace(
+                    f"K6 {tag} vs plain", p6, k6))
+                worst["K4a"] = max(worst["K4a"], _check_trace(
+                    f"K4a {tag} vs plain", p4, k4))
+                _check_trace(f"K6 vs K4a {tag}", k4, k6)
+                for supers in ((sbb, None) if name == "mesh_hires"
+                               else (sbb,)):
+                    k4b = ptk.mesh_best_rows(oi, di, tri, cbb=cbb, sbb=supers)
+                    p4b = ptk.mesh_best_rows_culled_plain(
+                        oi, di, tri, *((cbb, sbb) if supers is not None
+                                       else ptk.super_boxes(cbb)))
+                    what = "" if supers is not None else ", sbb=None"
+                    worst["K4b"] = max(worst["K4b"], _check_exact(
+                        f"K4b {tag}{what} vs plain", p4b, k4b))
+                    _check_trace(f"K4b vs K4a {tag}{what}", k4, k4b)
+                    _check_trace(f"K4b vs K6 {tag}{what}", k6, k4b)
+    launches = TRACE_WRAPPERS["K4b"].launches
+    if launches != len(rec4b) or launches == 0:
+        raise AssertionError(f"K4b launched {launches} times for "
+                             f"{len(rec4b)} calls of the op")
     torch.cuda.synchronize()
-    return worst
+    return worst, rec4b, launches
+
+
+def phase_k4b_stats(rec):
+    """K4b over phase 7's launches: ms per launch (CUDA events), its work
+    and bound, and the plain version on the same launches. No render
+    route reaches K4b, so these are its numbers."""
+    ms, work, needed = _time_recorded("K4b", rec)
+    ops = sum(_needed_ops("K4b", args, int(n[0]), int(n[1]), int(n[2]))
+              for n, (_, args, _) in zip(needed, rec))
+    nbytes = sum(_launch_bytes("K4b", args) for _, args, _ in rec)
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"K4b alone on phase 7's {len(rec)} launches: "
+          + ", ".join(f"{t:.4f}" for t in ms) + f" ms ({ms.mean():.4f} "
+          f"mean); work: {int(work[:, 0].sum())} tests done "
+          f"({int(needed[:, 0].sum())} needed), {int(work[:, 2].sum())} hits,"
+          f" {int(work[:, 1].sum())} leaf chunks and {int(work[:, 4].sum())} "
+          f"supers entered, {int(work[:, 3].sum())} box tests "
+          f"({int(needed[:, 2].sum())} needed); bound "
+          f"{bound_ms / len(rec):.5f} ms per launch ({bound_by}: {ops:.4g} "
+          f"FP32 operations, {nbytes} bytes)", flush=True)
+    plain_ms, _, err = _plain_vs_kernel("K4b", rec, sub=rec)
+    return dict(ms=float(ms.mean()), plain_ms=plain_ms,
+                bound_ms=bound_ms / len(rec), bound_by=bound_by,
+                max_abs_err=err, rec=rec)
 
 
 ROUTE_CASES = (("colonnes", 0.4, 1.0), ("mesh_demo", 1.2, 1.3))
@@ -942,12 +1128,16 @@ def phase_trace_route_parity(device, w=64, h=48, bounces=4):
 def _launches_per_pass(dev, r, kid):
     """The route's launches of kernel kid in one pass: per tile, bounce
     and trace (two on transparent scenes) one per mesh instance (K4a,
-    K6) or large analytic group (K3a, K5)."""
+    K6) or large analytic group (K3a; K5 up to trace.SPARSE_GROUP_MAX
+    padded prims, K3b past it)."""
     if kid in ("K4a", "K6"):
         units = len(dev.mesh_prim_index)
     else:
-        units = sum(int(p.shape[0]) > trace_mod.SMALL_GROUP_MAX
-                    for p in dev.group_prim)
+        sizes = [ptk._round_up(int(p.shape[0]), ptk.PRIM_CHUNK)
+                 for p in dev.group_prim
+                 if int(p.shape[0]) > trace_mod.SMALL_GROUP_MAX]
+        units = sum(kid == "K3a" or (size <= trace_mod.SPARSE_GROUP_MAX)
+                    == (kid == "K5") for size in sizes)
     traces = 2 if dev.has_transparent else 1
     return r._ntiles * r.config.nb_bounces * traces * units
 
@@ -957,7 +1147,7 @@ def _pass_stats(kid, r, rec):
     by bounce, its work and bound; returns (ms per launch, ms per pass,
     bound ms per launch, bound ms per pass, bounded by)."""
     ms, work, needed = _time_recorded(kid, rec)
-    ops = sum(_needed_ops(kid, args, int(n[0]), int(n[1]))
+    ops = sum(_needed_ops(kid, args, int(n[0]), int(n[1]), int(n[2]))
               for n, (_, args, _) in zip(needed, rec))
     nbytes = sum(_launch_bytes(kid, args) for _, args, _ in rec)
     bound_pass, bound_by = bound(nbytes, ops)
@@ -969,9 +1159,13 @@ def _pass_stats(kid, r, rec):
           f"per pass ({len(rec)} launches); work per pass: "
           f"{int(work[:, 0].sum())} tests done ({int(needed[:, 0].sum())} "
           f"needed), {int(work[:, 2].sum())} hits ({int(needed[:, 1].sum())}"
-          f" needed), {int(work[:, 1].sum())} chunks or blocks visited; "
-          f"bound {bound_pass:.4f} ms per pass ({bound_by}: {ops:.4g} FP32 "
-          f"operations, {nbytes} bytes)", flush=True)
+          f" needed), {int(work[:, 1].sum())} chunks or blocks visited"
+          + (f", {int(work[:, 3].sum())} box tests ({int(needed[:, 2].sum())}"
+             f" needed)" if work.shape[1] > 3 else "")
+          + (f", {int(work[:, 4].sum())} supers entered"
+             if work.shape[1] > 4 else "")
+          + f"; bound {bound_pass:.4f} ms per pass ({bound_by}: {ops:.4g} "
+          f"FP32 operations, {nbytes} bytes)", flush=True)
     print(f"{kid} by bounce (ms per pass): " + ", ".join(
         f"{b}: {t:.4f}" for b, t in enumerate(by_bounce)), flush=True)
     return (float(ms.mean()), float(ms.sum()), bound_pass / len(rec),
@@ -1097,6 +1291,110 @@ def phase_trace_brute(device, name, light, ior, kid, bounces, w=800, h=600,
                 rec=rec)
 
 
+def _k3b_scan_ms(launch, reps=10):
+    """K3b's chunk-box scan alone: the recorded launch's rays moved 1000
+    units above the scene's top and sent straight up, so that no ray
+    enters a chunk box and each only tests the group's boxes; ms per
+    launch (CUDA events over reps launches). It bounds what reading the
+    boxes otherwise (shared memory) could save."""
+    real, args, kw = launch
+    o, d, cbb = args[0], args[1], args[6]
+    top = float(cbb[5].max()) + 1000.0
+    o_up = torch.stack([o[0], o[1], torch.full_like(o[2], top)])
+    d_up = torch.zeros_like(d)
+    d_up[2] = 1.0
+    up = (o_up, d_up) + tuple(args[2:])
+    work = torch.zeros(N_WORK["K3b"], dtype=torch.int64, device=o.device)
+    out = real(*up, **kw, work=work)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        real(*up, **kw)
+    e1.record()
+    torch.cuda.synchronize()
+    if int(work[1]) or bool((out[1] >= 0).any()):
+        raise AssertionError("K3b scan: rays above the scene entered a chunk")
+    ms = e0.elapsed_time(e1) / reps
+    print(f"K3b chunk-box scan alone ({o.shape[1]} rays entering none of "
+          f"{cbb.shape[1]} boxes): {ms:.4f} ms per launch", flush=True)
+    return ms
+
+
+def phase_large_scene(device, n_prims=200_000, w=800, h=600, bounces=3,
+                      window=1, tile_rays=1 << 17, n_plain=2):
+    """scenes.scene_stress(n_prims) (the procedural field that
+    benchmarks/stress_curve.py sweeps) through compile_scene and
+    Renderer.advance with RenderConfig(use_megakernel=False): its sphere
+    group, past trace.SPARSE_GROUP_MAX padded prims, takes K3b, its cube
+    group K5. The host time of the scene build and the compile; the launch
+    counts over one window (opaque: per tile one trace per bounce, each
+    one K3b and one K5 launch); the image; rays/s; one tile call's wall
+    time, device busy time and idle share; K3b's time per launch, per pass
+    and by bounce with its work and bound; n_plain recorded full-size K3b
+    launches (a primary and a later bounce) against the plain version and
+    against K3a; and K3b's chunk-box scan alone (_k3b_scan_ms)."""
+    t0 = time.perf_counter()
+    prims = scenes.scene_stress(n_prims=n_prims)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dev = compile_scene(prims, device=device)
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    groups = {int(c): int(p.shape[0])
+              for c, p in zip(dev.group_codes, dev.group_prim)}
+    print(f"large scene: scene_stress(n_prims={n_prims}) built in "
+          f"{build_s:.3f} s, compile_scene {compile_s:.3f} s (host clock); "
+          f"padded groups by shape code {groups}", flush=True)
+    if dev.has_transparent or dev.mesh_prim_index:
+        raise AssertionError("scene_stress should be opaque and analytic")
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       tile_rays=tile_rays, passes_per_call=window,
+                       use_megakernel=False, device=device)
+    r = Renderer(dev, cfg)
+    _tile_call(r, 0, 0)                     # warm-up: one tile
+    rec = []
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_launches("K3b", rec):       # keeps references only
+        r.advance(window)                   # synchronizes before returning
+    window_s = time.perf_counter() - t0
+    counts = _all_counts()
+    want = {k: window * _launches_per_pass(dev, r, k) for k in ("K3b", "K5")}
+    if any(counts[k] != n or n != window * r._ntiles * bounces
+           for k, n in want.items()) or sum(counts.values()) != sum(
+               want.values()) or len(rec) != want["K3b"]:
+        raise AssertionError(f"large scene: launches {counts} in the window, "
+                             f"want {want} ({r._ntiles} tiles x {bounces} "
+                             f"traces per pass) and nothing else")
+    img = r.image()
+    if img.shape != (h, w, 3) or not np.isfinite(img).all() \
+            or (img < 0).any():
+        raise AssertionError("large-scene image is not finite and >= 0")
+    rays_per_s = w * h * window * bounces / window_s
+    print(f"large scene path: {w}x{h} {bounces} bounces, {r._ntiles} tiles "
+          f"of {r._tile} rays, {window}-pass window {window_s:.4f} s, "
+          f"launches {counts}, image mean {img.mean():.5f}, "
+          f"{rays_per_s:.6g} rays/s", flush=True)
+    tile_wall, tile_busy = _tile_idle(r, "K3b")
+    ms_launch, ms_pass, bound_launch, bound_pass, bound_by = _pass_stats(
+        "K3b", r, rec[:r._ntiles * bounces])   # the window's first pass
+    # tile 0's primaries and tile 1's first bounce
+    sub = [rec[0], rec[bounces + 1]][:n_plain]
+    plain_ms, _, err = _plain_vs_kernel("K3b", rec, sub=sub)
+    for real, args, kw in sub:
+        _check_trace("K3b vs K3a full-size launch", ptk.group_best_rows(
+            *args[:6]), real(*args, **kw))
+    scan_ms = _k3b_scan_ms(rec[0])
+    return dict(launches=counts["K3b"], k5_launches=counts["K5"],
+                rays_per_s=rays_per_s, window_s=window_s,
+                build_s=build_s, compile_s=compile_s,
+                tile_wall_ms=tile_wall * 1e3, tile_busy_ms=tile_busy * 1e3,
+                ms=ms_launch, ms_pass=ms_pass, plain_ms=plain_ms,
+                bound_ms=bound_launch, bound_pass=bound_pass,
+                bound_by=bound_by, max_abs_err=err, scan_ms=scan_ms, rec=rec)
+
+
 @contextlib.contextmanager
 def fma_trace_kernels():
     """Within the block, the trace kernels' wrappers launch a build of
@@ -1116,11 +1414,12 @@ def fma_trace_kernels():
 def phase_fma(trace, n=8):
     """Each trace kernel built with FMA contraction against the default
     build without it, in this call, on the recorded full-size launches of
-    phases 9 and 10: the mean ms per launch of each build over the pass
+    phases 7 (K4b), 9, 10 and 11 (K3b): the mean ms per launch of each
+    build over the pass
     (CUDA events, _time_recorded), and how far the FMA build's distances
     move from the default build's, which equal the plain versions', on n
     of the launches."""
-    for kid in ("K3a", "K4a", "K5", "K6"):
+    for kid in ("K3a", "K3b", "K4a", "K4b", "K5", "K6"):
         rec = trace[kid]["rec"]
         sub = rec[::max(1, len(rec) // n)]
         ms_ref = _time_recorded(kid, rec)[0].mean()
@@ -1187,12 +1486,17 @@ def main() -> int:
           flush=True)
     phase_k2_whole_path("cuda")
 
-    worst3 = phase_trace_parity("cuda")
+    worst3, rec4b, k4b_launches = phase_trace_parity("cuda")
     print(f"phase-7 trace kernel parity worst max_abs_err {worst3}",
           flush=True)
+    trace = {"K4b": dict(phase_k4b_stats(rec4b), launches=k4b_launches)}
+    print(f"[{name_power}] K4b {trace['K4b']['ms']:.4f} ms/launch over "
+          f"phase 7's {k4b_launches} launches (bound "
+          f"{trace['K4b']['bound_ms']:.5f} ms/launch, "
+          f"{trace['K4b']['bound_by']}); plain {trace['K4b']['plain_ms']:.3f}"
+          f" ms/launch", flush=True)
     worst4 = phase_trace_route_parity("cuda")
     print(f"phase-8 route parity worst max_abs_err {worst4:.3e}", flush=True)
-    trace = {}
     for kid, name, light, ior, w, h, bounces, window in (
             ("K6", "mesh_demo", 1.2, 1.0, 800, 600, 8, 2),
             ("K5", "colonnes", 0.4, 1.0, 1920, 1080, 6, 1)):
@@ -1213,6 +1517,16 @@ def main() -> int:
               f"(bound {res3['bound_pass']:.4f} ms/pass, {res3['bound_by']}); "
               f"plain {res3['plain_ms']:.3f} ms/launch", flush=True)
         trace[kid] = res3
+    res4 = phase_large_scene("cuda")
+    print(f"[{name_power}] scene_stress(200000) pallas-trace route end to "
+          f"end {res4['rays_per_s']:.6g} rays/s (800x600 x 1 pass x 3 bounces"
+          f" / {res4['window_s']:.4f} s; host build {res4['build_s']:.2f} s, "
+          f"compile_scene {res4['compile_s']:.2f} s); K3b {res4['ms']:.4f} "
+          f"ms/launch, {res4['ms_pass']:.4f} ms/pass (bound "
+          f"{res4['bound_pass']:.4f} ms/pass, {res4['bound_by']}; its box "
+          f"scan alone {res4['scan_ms']:.4f} ms/launch); plain "
+          f"{res4['plain_ms']:.3f} ms/launch", flush=True)
+    trace["K3b"] = res4
     phase_fma(trace)
 
     print(json.dumps({"kernels": [
@@ -1226,7 +1540,8 @@ def main() -> int:
          "max_abs_err": res2["max_abs_err"], "ms": res2["k2_ms"],
          "plain_ms": res2["plain_ms"], "bound_ms": res2["bound_ms"],
          "bound_by": res2["bound_by"], "library_ms": None}]
-        + [_trace_line(kid, trace[kid]) for kid in ("K3a", "K4a", "K5", "K6")]}))
+        + [_trace_line(kid, trace[kid])
+           for kid in ("K3a", "K3b", "K4a", "K4b", "K5", "K6")]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

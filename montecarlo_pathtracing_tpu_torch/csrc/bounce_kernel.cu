@@ -113,16 +113,6 @@ __device__ __forceinline__ void count_slots(Counts& n) {
   if ((threadIdx.x % 32) == __ffs(__activemask()) - 1) n.slots += 32 * CHUNK;
 }
 
-// slab test of box column `col` against a per-ray cap, with the entry
-// clamped at 0 (the reference's _slab_rows)
-__device__ __forceinline__ bool slab_cap(const float* box, int stride, int col, V3 o, V3 rd,
-                                         float cap) {
-  float tmin, tmax;
-  slab_interval(box, stride, col, o, rd, tmin, tmax);
-  tmin = fmaxf(tmin, 0.0f);
-  return (tmax >= tmin) && (tmin <= cap);
-}
-
 // the per-ray cap of a walk: the exit from the root box (column `col` of
 // `box`, a union of the real chunk boxes) with a margin, 0 when the ray
 // misses the root box; nothing can be hit beyond it

@@ -1,5 +1,5 @@
 // Device code shared by K1 (megakernel.cu), K2 (bounce_kernel.cu) and the
-// trace kernels K3a, K4a, K5 and K6 (trace_kernels.cu).
+// trace kernels K3a, K3b, K4a, K4b, K5 and K6 (trace_kernels.cu).
 //
 // The JAX package shares the same pieces between its kernels:
 // montecarlo_pathtracing_tpu/models/bounce_kernel.py imports _trace_fold
@@ -348,6 +348,17 @@ __device__ __forceinline__ void slab_interval(const float* box, int stride, int 
   float t1z = (ld(box, 5, stride, col) - o.z) * rd.z;
   tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+}
+
+// slab test of box column `col` against a per-ray cap, with the entry
+// clamped at 0 (the reference's _slab_rows, and the chunk gates of its
+// culled trace kernels, pallas_trace.py:280-292)
+__device__ __forceinline__ bool slab_cap(const float* box, int stride, int col, V3 o, V3 rd,
+                                         float cap) {
+  float tmin, tmax;
+  slab_interval(box, stride, col, o, rd, tmin, tmax);
+  tmin = fmaxf(tmin, 0.0f);
+  return (tmax >= tmin) && (tmin <= cap);
 }
 
 // slab test of box column `col` against the ray's running best world

@@ -8,9 +8,15 @@
 // K3a group_kernel replaces montecarlo_pathtracing_tpu/ops/pallas_trace.py:162
 //     (_group_kernel_plain, launched by group_best_rows): world rays against
 //     every prim of a homogeneous group; (dist, group row, local a, dircode).
+// K3b group_culled_kernel replaces ops/pallas_trace.py:251
+//     (_group_kernel_culled, launched by group_best_rows with chunk boxes):
+//     K3a behind a slab test of each 128-prim chunk's world box.
 // K4a tri_kernel replaces ops/pallas_trace.py:497 (_tri_kernel, launched by
 //     mesh_best_rows): Moller-Trumbore of mesh-local unit rays against every
 //     128-triangle chunk, folded on the local parameter a; (a, row).
+// K4b tri_culled_kernel replaces ops/pallas_trace.py:543 (_tri_kernel_culled,
+//     launched by mesh_best_rows with leaf and super boxes): K4a behind two
+//     levels of slab tests, supers of 16 leaf chunks and then each leaf.
 // K5 an_walk replaces ops/sparse_trace.py:139 (_an_kernel, launched by
 //     _an_fold_call inside group_best_rows_sparse): the nearest-first walk of
 //     a 1024-ray tile over the group's 8-prim blocks, with the occlusion prune.
@@ -32,6 +38,27 @@
 // ties included, are the TPU kernels'. Padding prims (scene id < 0 in K3a,
 // ok flag 0 in K5) never win; padding triangles are degenerate.
 //
+// The culled folds (K3b, K4b). Before a chunk each ray tests the chunk's
+// box against its running best (the reference's slab test, with
+// ops/vec.safe_rcp's reciprocals: a zero component gives a huge finite
+// value, never inf * 0). The TPU skipped a chunk when no ray of its
+// 1024-ray tile passed; the cull is conservative (a hit inside a box lies
+// no nearer than the box's entry), so any subset of a tile's rays, down to
+// one, may skip a chunk that none of its rays passes, and the winners stay
+// the brute fold's. K3b gates per warp (__any_sync): its prims are read as
+// warp-wide broadcasts, so a warp is the finest unit that runs a chunk
+// together, and it needs no barrier. Gating each ray alone would save no
+// time (a lane that skips idles while its warp runs the chunk for the
+// others); gating the 128-ray block would add a barrier per chunk (1,172 on
+// a 150k-prim group) and run chunks for four warps that one of them needs.
+// K4b gates per block (__syncthreads_or), since its block stages a chunk's
+// triangles in shared memory together; the barrier is the one staging
+// needs anyway. Its padding leaves (past the last real chunk, empty boxes)
+// are skipped and never read; the reference clamped their data index to
+// the last real chunk instead (pallas_trace.py:580-590). Box columns are
+// read with __ldg, the same column by every thread: uniform broadcasts
+// from L1 (1,172 K3b boxes are 28 KB).
+//
 // The walks (K5, K6). A block walks its tile's ranked list (order[t],
 // tlo[t], ascending entry bound) front to back in one launch. Before each
 // block or chunk it asks with __syncthreads_or whether any of its rays still
@@ -51,8 +78,8 @@
 // What bounds them on this card: FP32 operations. A ray-prim test is 47-86
 // FP32 operations (the local frame 42, the shape test 5-44), and 33 more for
 // the world hit point and distance where the shape test passes; a
-// ray-triangle test is 51 (20 where the determinant rejects it). The bytes
-// are few: rays in, winners out,
+// ray-triangle test is 51 (20 where the determinant rejects it); a slab
+// test about 24. The bytes are few: rays in, winners out, chunk boxes,
 // tables read from L1 and L2 (a group's [25, P] table is 52 KB at 512 prims;
 // mesh_demo's largest instance is 83 KB of corners). What keeps them from
 // that bound: divergence inside the shape tests, the brute kernels' tests of
@@ -61,8 +88,9 @@
 //
 // Work counters, when `counts` is set: [0] ray-prim or ray-triangle tests
 // done, [1] 128-prim chunks (K3a), chunks (K4a, K6) or 8-prim blocks (K5)
-// that blocks visited, [2] tests that hit (the shape test passed, or the
-// triangle was hit).
+// that blocks visited, or chunks that warps (K3b) or blocks (K4b) entered,
+// [2] tests that hit (the shape test passed, or the triangle was hit); K3b
+// and K4b add [3] ray-box tests and K4b [4] supers that blocks entered.
 //
 // Floating point is IEEE, without --use_fast_math (see common.cuh), and this
 // file is built without FMA contraction (-fmad=false, kernels.EXTRA_FLAGS):
@@ -86,22 +114,26 @@ constexpr int AN_TILE = 1024;   // rays per K5 tile
 constexpr int AN_BLOCK = 256;   // rays per K5 thread block (a quarter tile)
 constexpr int MESH_TILE = 128;  // rays per K6 tile and thread block
 constexpr float INF = 3e38f;    // entry bound of an unreachable block
+constexpr int TRI_SUPER = 16;   // leaf chunks per K4b super
+constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ V3 ray_at(const float* r, int M, int i) {
   return {r[i], r[M + i], r[2 * M + i]};
+}
+
+// v summed over the warp's threads, added to *slot by one of them
+__device__ __forceinline__ void add_warp_sum(unsigned long long* slot, uint32_t v) {
+  const unsigned mask = __activemask();
+  const uint32_t sum = __reduce_add_sync(mask, v);
+  if ((threadIdx.x % 32) == __ffs(mask) - 1) atomicAdd(slot, static_cast<unsigned long long>(sum));
 }
 
 // the thread's tests and hits summed per warp, and the block's visits once
 __device__ __forceinline__ void add_counts(unsigned long long* counts, uint32_t tests,
                                            uint32_t visits, uint32_t hits) {
   if (!counts) return;
-  const unsigned mask = __activemask();
-  const uint32_t sum = __reduce_add_sync(mask, tests);
-  const uint32_t hsum = __reduce_add_sync(mask, hits);
-  if ((threadIdx.x % 32) == __ffs(mask) - 1) {
-    atomicAdd(counts, static_cast<unsigned long long>(sum));
-    atomicAdd(counts + 2, static_cast<unsigned long long>(hsum));
-  }
+  add_warp_sum(counts, tests);
+  add_warp_sum(counts + 2, hits);
   if (threadIdx.x == 0) atomicAdd(counts + 1, static_cast<unsigned long long>(visits));
 }
 
@@ -119,23 +151,15 @@ __device__ __forceinline__ bool prim_hit(const float* iv, const float* tf, V3 o,
   return true;
 }
 
-// ---------------------------------------------------------------------------
-// K3a: every prim of one group, ascending
-// ---------------------------------------------------------------------------
-
+// prims [begin, end) of a group's [12, ppad] tables, ascending, folded into
+// the best (bd, brow, ba, bdir) under the strictly-closer rule
 template <int SHAPE>
-__global__ void __launch_bounds__(CHUNK)
-    group_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
-                 const float* __restrict__ inv, const float* __restrict__ trf,
-                 const int* __restrict__ pid, int ppad, float* dist_out, int* row_out,
-                 float* a_out, int* dir_out, unsigned long long* counts) {
-  const int ray = blockIdx.x * CHUNK + threadIdx.x;
-  const V3 ro = ray_at(o, M, ray);
-  const V3 rd = ray_at(d, M, ray);
-  float bd = FMAX, ba = 0.0f;
-  int brow = -1, bdir = -1;
-  uint32_t tests = 0, hits = 0;
-  for (int c = 0; c < ppad; ++c) {
+__device__ __forceinline__ void fold_prims(const float* __restrict__ inv,
+                                           const float* __restrict__ trf,
+                                           const int* __restrict__ pid, int ppad, int begin,
+                                           int end, V3 ro, V3 rd, float& bd, int& brow, float& ba,
+                                           int& bdir, uint32_t& tests, uint32_t& hits) {
+  for (int c = begin; c < end; ++c) {
     if (__ldg(pid + c) < 0) continue;  // group padding never hits
     ++tests;
     float iv[12], tf[12];
@@ -154,11 +178,68 @@ __global__ void __launch_bounds__(CHUNK)
       bdir = code;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// K3a: every prim of one group, ascending
+// ---------------------------------------------------------------------------
+
+template <int SHAPE>
+__global__ void __launch_bounds__(CHUNK)
+    group_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
+                 const float* __restrict__ inv, const float* __restrict__ trf,
+                 const int* __restrict__ pid, int ppad, float* dist_out, int* row_out,
+                 float* a_out, int* dir_out, unsigned long long* counts) {
+  const int ray = blockIdx.x * CHUNK + threadIdx.x;
+  const V3 ro = ray_at(o, M, ray);
+  const V3 rd = ray_at(d, M, ray);
+  float bd = FMAX, ba = 0.0f;
+  int brow = -1, bdir = -1;
+  uint32_t tests = 0, hits = 0;
+  fold_prims<SHAPE>(inv, trf, pid, ppad, 0, ppad, ro, rd, bd, brow, ba, bdir, tests, hits);
   dist_out[ray] = bd;
   row_out[ray] = bd < FMAX ? brow : -1;
   a_out[ray] = ba;
   dir_out[ray] = bdir;
   add_counts(counts, tests, ppad / CHUNK, hits);
+}
+
+// ---------------------------------------------------------------------------
+// K3b: K3a, a warp entering a 128-prim chunk only if one of its rays
+// enters the chunk's box no farther than its best
+// ---------------------------------------------------------------------------
+
+template <int SHAPE>
+__global__ void __launch_bounds__(CHUNK)
+    group_culled_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
+                        const float* __restrict__ inv, const float* __restrict__ trf,
+                        const int* __restrict__ pid, int ppad, const float* __restrict__ cbb,
+                        float* dist_out, int* row_out, float* a_out, int* dir_out,
+                        unsigned long long* counts) {
+  const int ray = blockIdx.x * CHUNK + threadIdx.x;
+  const V3 ro = ray_at(o, M, ray);
+  const V3 rd = ray_at(d, M, ray);
+  const V3 rcp = {safe_rcp(rd.x), safe_rcp(rd.y), safe_rcp(rd.z)};
+  const int nchunks = ppad / CHUNK;
+  float bd = FMAX, ba = 0.0f;
+  int brow = -1, bdir = -1;
+  uint32_t tests = 0, entered = 0, hits = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    // M is a multiple of 1024 and a block 128 rays: every warp is full
+    if (!__any_sync(FULL, slab_cap(cbb, nchunks, c, ro, rcp, bd))) continue;
+    ++entered;
+    fold_prims<SHAPE>(inv, trf, pid, ppad, c * CHUNK, (c + 1) * CHUNK, ro, rd, bd, brow, ba, bdir,
+                      tests, hits);
+  }
+  dist_out[ray] = bd;
+  row_out[ray] = bd < FMAX ? brow : -1;
+  a_out[ray] = ba;
+  dir_out[ray] = bdir;
+  if (!counts) return;
+  add_warp_sum(counts, tests);
+  add_warp_sum(counts + 2, hits);
+  add_warp_sum(counts + 3, static_cast<uint32_t>(nchunks));
+  if (threadIdx.x % 32 == 0) atomicAdd(counts + 1, static_cast<unsigned long long>(entered));
 }
 
 // ---------------------------------------------------------------------------
@@ -217,6 +298,49 @@ __global__ void __launch_bounds__(CHUNK)
   a_out[ray] = abest;
   row_out[ray] = abest < FMAX ? best : -1;
   add_counts(counts, static_cast<uint32_t>(ppad), nchunks, hits);
+}
+
+// ---------------------------------------------------------------------------
+// K4b: K4a behind two levels of box tests, a block entering a super or a
+// leaf only if one of its rays enters the box no farther than its best a
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(CHUNK)
+    tri_culled_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
+                      const float* __restrict__ tri, int ppad, const float* __restrict__ cbb,
+                      const float* __restrict__ sbb, int nsuper, float* a_out, int* row_out,
+                      unsigned long long* counts) {
+  __shared__ float s[9][CHUNK];
+  const int ray = blockIdx.x * CHUNK + threadIdx.x;
+  const V3 oi = ray_at(o, M, ray);
+  const V3 di = ray_at(d, M, ray);
+  const V3 rcp = {safe_rcp(di.x), safe_rcp(di.y), safe_rcp(di.z)};
+  const int nreal = ppad / CHUNK, nleaf = nsuper * TRI_SUPER;
+  float abest = FMAX;
+  int best = -1;
+  uint32_t boxes = 0, supers = 0, visits = 0, hits = 0;
+  for (int sc = 0; sc < nsuper; ++sc) {
+    ++boxes;
+    if (!__syncthreads_or(slab_cap(sbb, nsuper, sc, oi, rcp, abest))) continue;
+    ++supers;
+    for (int j = 0; j < TRI_SUPER; ++j) {
+      const int c = sc * TRI_SUPER + j;
+      if (c >= nreal) break;  // padding leaves: empty boxes, no triangles
+      ++boxes;
+      // the barrier also ends every thread's use of the previous chunk
+      if (!__syncthreads_or(slab_cap(cbb, nleaf, c, oi, rcp, abest))) continue;
+      stage_chunk(s, tri, ppad, c);
+      __syncthreads();
+      ++visits;
+      fold_chunk(s, c, oi, di, abest, best, hits);
+    }
+  }
+  a_out[ray] = abest;
+  row_out[ray] = abest < FMAX ? best : -1;
+  if (!counts) return;
+  add_counts(counts, visits * CHUNK, visits, hits);
+  add_warp_sum(counts + 3, boxes);
+  if (threadIdx.x == 0) atomicAdd(counts + 4, static_cast<unsigned long long>(supers));
 }
 
 // ---------------------------------------------------------------------------
@@ -353,6 +477,16 @@ struct GroupLaunch {
 };
 
 template <int SHAPE>
+struct GroupCulledLaunch {
+  static void run(const float* o, const float* d, int M, const float* inv, const float* trf,
+                  const int* pid, int ppad, const float* cbb, float* dist, int* row, float* a,
+                  int* dir, unsigned long long* counts, cudaStream_t stream) {
+    group_culled_kernel<SHAPE><<<M / CHUNK, CHUNK, 0, stream>>>(o, d, M, inv, trf, pid, ppad, cbb,
+                                                                dist, row, a, dir, counts);
+  }
+};
+
+template <int SHAPE>
 struct AnLaunch {
   static void run(const float* o, const float* d, int M, const float* tab, const int* order,
                   const float* tlo, int S, const float* bound, float* dist, int* row, float* a,
@@ -380,6 +514,20 @@ extern "C" int group_best(const void* o, const void* d, int M, const void* inv, 
       static_cast<cudaStream_t>(stream));
 }
 
+// K3b. As K3a, plus cbb: [6, ppad / 128] f32 chunk boxes.
+extern "C" int group_best_culled(const void* o, const void* d, int M, const void* inv,
+                                 const void* trf, const void* pid, int ppad, const void* cbb,
+                                 int shape, void* dist, void* row, void* a, void* dir,
+                                 void* counts, void* stream) {
+  if (bad_rays(M, AN_TILE) || ppad <= 0 || ppad % CHUNK) return cudaErrorInvalidValue;
+  return by_shape<GroupCulledLaunch>(
+      shape, static_cast<const float*>(o), static_cast<const float*>(d), M,
+      static_cast<const float*>(inv), static_cast<const float*>(trf), static_cast<const int*>(pid),
+      ppad, static_cast<const float*>(cbb), static_cast<float*>(dist), static_cast<int*>(row),
+      static_cast<float*>(a), static_cast<int*>(dir), static_cast<unsigned long long*>(counts),
+      static_cast<cudaStream_t>(stream));
+}
+
 // K4a. o, d: [3, M] f32 (M a multiple of 1024); tri: [9, ppad] f32 (ppad a
 // multiple of 128); outputs [M].
 extern "C" int mesh_best(const void* o, const void* d, int M, const void* tri, int ppad, void* a,
@@ -388,6 +536,22 @@ extern "C" int mesh_best(const void* o, const void* d, int M, const void* tri, i
   tri_kernel<<<M / CHUNK, CHUNK, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(d), M,
       static_cast<const float*>(tri), ppad, static_cast<float*>(a), static_cast<int*>(row),
+      static_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4b. As K4a, plus cbb: [6, 16 * nsuper] f32 leaf boxes (ppad / 128 of
+// them real) and sbb: [6, nsuper] f32 super boxes.
+extern "C" int mesh_best_culled(const void* o, const void* d, int M, const void* tri, int ppad,
+                                const void* cbb, const void* sbb, int nsuper, void* a, void* row,
+                                void* counts, void* stream) {
+  if (bad_rays(M, AN_TILE) || ppad <= 0 || ppad % CHUNK || nsuper <= 0 ||
+      ppad / CHUNK > nsuper * TRI_SUPER)
+    return cudaErrorInvalidValue;
+  tri_culled_kernel<<<M / CHUNK, CHUNK, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(o), static_cast<const float*>(d), M,
+      static_cast<const float*>(tri), ppad, static_cast<const float*>(cbb),
+      static_cast<const float*>(sbb), nsuper, static_cast<float*>(a), static_cast<int*>(row),
       static_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
 }

@@ -158,8 +158,8 @@ def bounce_kernel_lib() -> ctypes.CDLL:
 
 
 def trace_kernels_lib() -> ctypes.CDLL:
-    """K3a, K4a, K5 and K6 (csrc/trace_kernels.cu), built and loaded once
-    per process."""
+    """K3a, K3b, K4a, K4b, K5 and K6 (csrc/trace_kernels.cu), built and
+    loaded once per process."""
     lib = _loaded.get("trace_kernels")
     if lib is None:
         lib = ctypes.CDLL(build("trace_kernels"))
@@ -167,15 +167,22 @@ def trace_kernels_lib() -> ctypes.CDLL:
         # o, d, M, inv, trf, pid, ppad, shape, dist, row, a, dir, counts,
         # stream
         lib.group_best.argtypes = [p, p, i, p, p, p, i, i, p, p, p, p, p, p]
+        # o, d, M, inv, trf, pid, ppad, cbb, shape, dist, row, a, dir,
+        # counts, stream
+        lib.group_best_culled.argtypes = [p, p, i, p, p, p, i, p, i, p, p, p,
+                                          p, p, p]
         # o, d, M, tri, ppad, a, row, counts, stream
         lib.mesh_best.argtypes = [p, p, i, p, i, p, p, p, p]
+        # o, d, M, tri, ppad, cbb, sbb, nsuper, a, row, counts, stream
+        lib.mesh_best_culled.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p]
         # o, d, M, tab, nblk, order, tlo, S, bound, shape, dist, row, a,
         # dir, counts, stream
         lib.an_fold.argtypes = [p, p, i, p, i, p, p, i, p, i, p, p, p, p, p,
                                 p]
         # o, d, M, tri, ppad, order, tlo, S, bound, a, row, counts, stream
         lib.mesh_fold.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p, p]
-        for fn in (lib.group_best, lib.mesh_best, lib.an_fold, lib.mesh_fold):
+        for fn in (lib.group_best, lib.group_best_culled, lib.mesh_best,
+                   lib.mesh_best_culled, lib.an_fold, lib.mesh_fold):
             fn.restype = ctypes.c_int
         lib.trace_error_string.argtypes = [ctypes.c_int]
         lib.trace_error_string.restype = ctypes.c_char_p

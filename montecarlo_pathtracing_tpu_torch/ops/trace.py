@@ -10,13 +10,19 @@ same kernel as the reference:
     as the reference's are XLA ops);
   - larger groups: K5 (`sparse_trace.group_best_rows_sparse`) when
     culling is on, M is a multiple of AN_TILE and the padded group has at
-    most 1 << 17 prims; otherwise K3a (`pallas_trace.group_best_rows`),
-    whose culled variant K3b a multi-chunk group would need with culling
-    on (not ported: it raises);
+    most SPARSE_GROUP_MAX prims; otherwise `pallas_trace.group_best_rows`
+    with the group's chunk boxes (K3b) when culling is on and the group
+    spans more than one 128-prim chunk, without them (K3a) when not.
+    M is always a multiple of AN_TILE on the route, so K3b runs for the
+    groups past SPARSE_GROUP_MAX, e.g. the 150,016-prim sphere group of
+    `scenes.scene_stress(n_prims=200_000)`;
   - mesh instances: K6 (`sparse_trace.mesh_best_rows_sparse`) when
     culling is on, the instance spans more than one 128-triangle chunk
-    and M is a multiple of MESH_TILE; otherwise K4a
-    (`pallas_trace.mesh_best_rows`), whose culled variant K4b raises.
+    and M is a multiple of MESH_TILE; otherwise
+    `pallas_trace.mesh_best_rows`, with the instance's leaf and super
+    boxes (K4b) when culling is on and it spans more than one chunk. A
+    multiple of AN_TILE is a multiple of MESH_TILE, so no route of the
+    renderer reaches K4b (the reference's :223 alike); the op does.
 
 Tie rule: a candidate replaces the best only if strictly closer in world
 distance, groups in scene order, then instances.
@@ -40,6 +46,11 @@ _FMAX = float(FLT_MAX)
 # Groups of at most this many (padded) prims take the plain scalar fold
 # instead of a kernel, as in the reference
 SMALL_GROUP_MAX = 96
+# K5's gate: groups of at most this many padded prims take the walk, as
+# in the reference (montecarlo_pathtracing_tpu/ops/trace.py:169-170,
+# where it bounds the XLA-side [tiles, blocks] entry matrix); larger ones
+# take K3b with the cull on
+SPARSE_GROUP_MAX = 1 << 17
 
 
 class HitS(NamedTuple):
@@ -83,8 +94,9 @@ def trace_soa(scene, o, d, *, cull_chunks: bool | None = None) -> HitS:
     """Closest hit of rays o, d (vec3s of [M], M a multiple of RAY_TILE,
     unit directions; pad with unit-z dummy rays). cull_chunks: None
     (auto) or True takes the pruned walks K5 and K6 where the gates
-    allow; False forces the brute folds K3a and K4a. Winners are equal
-    either way up to exact distance ties."""
+    allow and the culled folds K3b and K4b where they do not; False
+    forces the brute folds K3a and K4a. Winners are equal either way up
+    to exact distance ties."""
     m = o[0].shape[0]
     dev = o[0].device
     o_rows = torch.stack(o)
@@ -101,7 +113,8 @@ def trace_soa(scene, o, d, *, cull_chunks: bool | None = None) -> HitS:
         inv_r, trf_r, pid = _pad_group(
             scene.group_transfo[gi], scene.group_inv[gi],
             scene.group_prim[gi])
-        sparse = cull and m % AN_TILE == 0 and inv_r.shape[1] <= (1 << 17)
+        sparse = (cull and m % AN_TILE == 0
+                  and inv_r.shape[1] <= SPARSE_GROUP_MAX)
         if sparse:
             dist, row, a, dircode = group_best_rows_sparse(
                 o_rows, d_rows, code, inv_r, trf_r, pid,

@@ -218,12 +218,15 @@ def compile_scene(scene: ScenePrimitives, *, analytic_chunk: int = 64,
             _counts[p.type] = _counts.get(p.type, 0) + 1
     total_analytic = sum(padded_group_size(c, analytic_chunk)
                          for c in _counts.values())
+    # the scene box of the Morton keys, once: inside the sort key it made
+    # the sort quadratic in the group size
+    scene_lo, scene_hi = bbmin.min(0), bbmax.max(0)
     for code in ANALYTIC_CODES:
         idx = [i for i, p in enumerate(scene.prims) if p.type == code]
         if not idx:
             continue
-        idx = sorted(idx, key=lambda i: _morton3(centers[i], bbmin.min(0),
-                                                 bbmax.max(0)))
+        idx = sorted(idx, key=lambda i: _morton3(centers[i], scene_lo,
+                                                 scene_hi))
         chunk = min(analytic_chunk, _round_up(len(idx), 8))
         pad = padded_group_size(len(idx), analytic_chunk)
         trf = np.zeros((pad, 4, 4), F32)

@@ -128,6 +128,27 @@ def random_group(tf, code, n_prims, seed):
     return trf, inv, np.arange(n_prims, dtype=np.int32) * 3 + 1
 
 
+def group_chunk_boxes(trf, ppad, chunk=128):
+    """World boxes [6, ppad / chunk] of a random group's chunks, as the
+    reference's culled-kernel test makes them (tests/test_pallas_trace.py:
+    146-158): each prim a cube about its center of twice its largest
+    row's absolute sum, each chunk the union of its prims' cubes, and an
+    empty box (min 1, max -1) for a chunk past the last prim. trf [n, 4, 4]
+    numpy; float32 numpy out."""
+    centers = trf[:, :3, 3]
+    rad = np.abs(trf[:, :3, :3]).sum(2).max(1) * 2.0
+    cbb = np.zeros((6, ppad // chunk), np.float32)
+    for c in range(cbb.shape[1]):
+        lo, hi = c * chunk, min((c + 1) * chunk, len(centers))
+        if lo < len(centers):
+            cbb[0:3, c] = (centers[lo:hi] - rad[lo:hi, None]).min(0)
+            cbb[3:6, c] = (centers[lo:hi] + rad[lo:hi, None]).max(0)
+        else:
+            cbb[0:3, c] = 1.0
+            cbb[3:6, c] = -1.0
+    return cbb
+
+
 def random_rays(m, seed, lo=-80.0, hi=80.0):
     """m rays with uniform origins in [lo, hi]^3 and unit directions, as
     [3, m] float32 numpy rows (o, d)."""

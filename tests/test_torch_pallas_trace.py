@@ -1,7 +1,9 @@
 """The brute trace kernels' plain versions (K3a `group_best_rows_plain`,
 K4a `mesh_best_rows_plain`) against the JAX package's Pallas kernels
-`group_best_rows` and `mesh_best_rows` in interpret mode, and the padded
-tables bit for bit.
+`group_best_rows` and `mesh_best_rows` in interpret mode, the padded
+tables bit for bit, and the wrappers' dispatch on CPU tensors (the culled
+plain versions themselves are held against JAX in
+test_torch_culled_trace.py).
 
 Inputs are made with numpy from fixed seeds and given to both sides.
 Tolerance: the trace protocol of testing/parity.py. Winner rows equal on
@@ -29,7 +31,7 @@ from montecarlo_pathtracing_tpu_torch.ops import sparse_trace as sp
 from montecarlo_pathtracing_tpu_torch.scene import scenes
 from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
 from montecarlo_pathtracing_tpu_torch.testing.parity import (
-    assert_trace_protocol, random_group, random_rays)
+    assert_trace_protocol, group_chunk_boxes, random_group, random_rays)
 from montecarlo_pathtracing_tpu_torch.utils import transforms
 
 CODES = [1, 2, 3, 4, 5]   # sphere, cube, cylinder, cone, oriented quad
@@ -135,19 +137,38 @@ def test_pad_tris_bit_equal():
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-def test_culled_variants_raise_naming_their_items():
-    """K3b and K4b are not ported: a caller with chunk boxes is refused,
-    never given the brute kernel instead."""
+def test_culled_wrappers_take_the_culled_plain_version_on_cpu():
+    """On CPU tensors, chunk boxes send group_best_rows to K3b's plain
+    version and mesh_best_rows (with or without super boxes) to K4b's,
+    and no wrapper counts a launch; boxes of the wrong width are
+    refused."""
     (inv_r, trf_r, pid), _ = _tables(2)
     o, d = (torch.as_tensor(x) for x in random_rays(M, 1))
-    cbb = torch.zeros((6, 2))
-    with pytest.raises(NotImplementedError, match="B.K3b"):
-        pt.group_best_rows(o, d, 2, inv_r, trf_r, pid, cbb=cbb)
-    tri = torch.zeros((9, 256))
-    with pytest.raises(NotImplementedError, match="B.K4b"):
-        pt.mesh_best_rows(o, d, tri, cbb=cbb)
-    with pytest.raises(NotImplementedError, match="B.K4b"):
-        pt.mesh_best_rows(o, d, tri, sbb=cbb)
+    cbb = torch.as_tensor(group_chunk_boxes(
+        random_group(transforms, 2, 150, 207)[0], inv_r.shape[1]))
+    wrappers = (pt.group_best_rows, pt.group_best_rows_culled,
+                pt.mesh_best_rows, pt.mesh_best_rows_culled)
+    before = [w.launches for w in wrappers]
+    got = pt.group_best_rows(o, d, 2, inv_r, trf_r, pid, cbb=cbb)
+    ref = pt.group_best_rows_culled_plain(o, d, 2, inv_r, trf_r, pid, cbb)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), r.numpy())
+    with pytest.raises(ValueError, match="K3b"):
+        pt.group_best_rows(o, d, 2, inv_r, trf_r, pid, cbb=cbb[:, :1])
+
+    tri, _, oi, di, mcbb = _mesh_instance()
+    oi, di = torch.as_tensor(oi), torch.as_tensor(di)
+    cases = ((mcbb, None, pt.super_boxes(mcbb)),
+             (mcbb[:, :18], None, pt.super_boxes(mcbb[:, :18])),
+             (mcbb, torch.full((6, 2), 0.0), (mcbb, torch.full((6, 2), 0.0))))
+    for c, s, plain_boxes in cases:
+        got = pt.mesh_best_rows(oi, di, tri, cbb=c, sbb=s)
+        ref = pt.mesh_best_rows_culled_plain(oi, di, tri, *plain_boxes)
+        for g, r in zip(got, ref):
+            np.testing.assert_array_equal(g.numpy(), r.numpy())
+    with pytest.raises(ValueError, match="K4b"):
+        pt.mesh_best_rows(oi, di, tri, cbb=mcbb[:, :16], sbb=mcbb[:, :1])
+    assert [w.launches for w in wrappers] == before
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
