@@ -8,9 +8,11 @@ and prints no result, without them. Phases (about 8 minutes in all on an
 H100, the builds included):
 
 1. the card's name and power limit; build K1 (csrc/megakernel.cu), K2
-   (csrc/bounce_kernel.cu) and the trace kernels K3a, K3b, K4a, K4b, K5,
-   K6 (csrc/trace_kernels.cu), one nvcc each, started together, and print
-   the compile reports (registers, spills);
+   (csrc/bounce_kernel.cu, and its counting build for the work counters)
+   and the trace kernels K3a, K3b, K4a, K4b, K5, K6
+   (csrc/trace_kernels.cu), one nvcc each, started together, and print
+   the compile reports (registers, spills; each K2 and K5 variant's on a
+   line of its own);
 2. K1 against its plain version (models/megakernel.mega_pass_reference)
    on the card, 64x48 pixels, 4 bounces, passes 0 and 3, under the
    megakernel protocol (testing/parity.py), on box_diffuse (cull off,
@@ -25,22 +27,31 @@ H100, the builds included):
    and the plain version's time per pass, and K1's bound;
 4. K2 against its plain version (models/bounce_kernel.
    fused_call_reference) through raytrace_fused on the card, 64x48, 4
-   bounces, passes 0 and 3, under the fused protocol, on mesh_demo at IOR
-   1.3 (wavefront mode, transparent: the scheduled outer walk and the
-   schedule-free re-trace), the opaque mesh fixture with flat faces, a
-   4200-prim scene_stress (large analytic groups, whole-path mode; 1.5%
-   allowed) and a mesh scene with a culled 88-prim table; and
-   nb_bounces=0 -> black in both modes;
+   bounces, passes 0 and 3, under the fused protocol, in both modes
+   (wavefront and whole path) and in each launch shape of k2_launch
+   forced (8 and 16 lanes per ray) and the kernel's own choice, on
+   mesh_demo at IOR 1.3 (transparent: the scheduled outer walk and the
+   schedule-free re-trace), the opaque mesh fixture with flat faces, a 4200-prim scene_stress (large analytic groups; 1.5% allowed)
+   and a mesh scene with a culled 88-prim table; and nb_bounces=0 ->
+   black in both modes and shapes;
 5. K2's main path at full size: mesh_demo at 800x600, 8 bounces, 8
    passes per call, tile_rays 1<<17, through compile_scene and
    Renderer.advance; K2's launch count over one 8-pass window (passes x
    tiles x 8); the image finite and non-negative; device busy and idle
-   share under torch.profiler; the host's per-bounce sort and schedules;
-   K2's time per launch and per pass by CUDA events, with its work
-   counters and bound; a 2-pass accumulation of K2 against the plain
-   version's at full size; rays/s;
-6. a short window of K2's whole-path mode: stress_10k at 800x600, 3
-   bounces;
+   share under torch.profiler; K2's time per launch, per pass and by
+   bounce with the rays in flight (CUDA events over one recorded pass,
+   the card kept ahead of the host, the median of 5; and once with
+   host-paced events, as this script timed before) in the shape the
+   kernel chooses and in each shape forced, with its work counters, lane
+   share and the card's SM clock and power while timed; its bound from
+   the work the pass's inputs need (the plain version replayed on the
+   recorded launches with bk.K2Need); the host's per-bounce sort and
+   schedules; a 2-pass accumulation of K2 against the plain version's at
+   full size; rays/s;
+6. K2's whole-path mode on stress_10k, 3 bounces: a short window at
+   800x600 and K2 by shape over one recorded pass; a 1-pass accumulation
+   at 200x150 against the plain version, with K2's time by shape, the
+   plain version's and the bound on that pass;
 7. each trace kernel against its plain version on the card under the
    trace protocol (testing/parity.py; K3b and K4b: rows equal on 99.99%
    of rays, distances bit for bit): K3a on a random 200-prim group and K3b
@@ -51,7 +62,8 @@ H100, the builds included):
    each) and on mesh_hires's 796-chunk sphere (8192 rays; K4b also with
    sbb=None); and K5 and K3b against K3a, K6 and K4b against K4a on the
    same rays (tests/test_sparse_trace.py:27-54); K4b's time, work and
-   bound over those launches;
+   bound over those launches; the registers and spills of every K2 and
+   K5 variant come from phase 1's compile reports;
 8. the pallas-trace route (models.montecarlo.raytrace with the
    megakernel and the fused route off) with the kernels against the
    route with their plain versions, 64x48, 4 bounces, passes 0 and 3, on
@@ -64,8 +76,9 @@ H100, the builds included):
    bounces, light 0.4 (BASELINE config 5; 384 K5 launches per pass) over
    a 1-pass window: the launch counts, the image, rays/s, one tile call's
    wall time, device busy time and idle share (torch.profiler), the
-   kernel's time per launch, per pass and by bounce (CUDA events), its
-   work counters and bound, and 8 of its full-size launches against the
+   kernel's time per launch, per pass and by bounce (CUDA events, the
+   card kept ahead of the host, the median of 3, with the SM clock and
+   power; and host-paced, as before), its work counters and bound, and 8 of its full-size launches against the
    plain version;
 10. one pass of each path at 800x600 with cull_chunks=False: K4a and K3a
    launch counts, the image against the culled route's under the fused
@@ -92,6 +105,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -197,6 +211,59 @@ def card() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+# cycles of torch.cuda._sleep queued before each timed launch (about 2 ms
+# at an H100's clock): the host queues the launch's events, its wrapper's
+# small ops and the kernel while the card sleeps, so the events time the
+# card's work and not the host's pace
+KEEP_AHEAD = 4_000_000
+
+
+def _timed(launch, ahead=True):
+    """launch() between two CUDA events, the card kept busy while the
+    host queues them unless `ahead` is False. Returns (launch's result,
+    the events, late): late is True when the card had passed the first
+    event before the host had queued the launch, so that the events'
+    interval holds time the card spent waiting for the host."""
+    if ahead:
+        torch.cuda._sleep(KEEP_AHEAD)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = launch()
+    late = e0.query()
+    e1.record()
+    return out, (e0, e1), late
+
+
+@contextlib.contextmanager
+def clocks(label, period_ms=100):
+    """Sample the card's SM clock and power draw with nvidia-smi every
+    period_ms while the block runs, and print their range."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", str(period_ms)],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        yield
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(x) for x in line.split(",")])
+            except ValueError:
+                pass
+        if rows:
+            mhz, watts = np.array(rows).T
+            print(f"{label}: SM clock {mhz.min():.0f}-{mhz.max():.0f} MHz "
+                  f"(median {np.median(mhz):.0f}), power {watts.min():.1f}-"
+                  f"{watts.max():.1f} W over {len(rows)} samples",
+                  flush=True)
+        else:
+            print(f"{label}: SM clock and power not measured", flush=True)
 
 
 def bound(nbytes: float, ops: float):
@@ -373,35 +440,51 @@ def phase_main_path(device, w=800, h=600, bounces=3, window=64,
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def _k2_call(shape):
+    """A K2 call of raytrace_fused that launches K2 in the given shape
+    (None: the wrapper's own choice)."""
+    def call(inp, stf, sti, whole_path):
+        bk.k2_launch(inp, stf, sti, whole_path, shape=shape)
+    return call
+
+
 def phase_k2_parity(device, w=64, h=48, bounces=4):
-    """K2 vs its plain version through raytrace_fused, per scene and pass."""
+    """K2 vs its plain version through raytrace_fused, per scene, mode
+    (wavefront and whole path), pass and launch shape (each forced, and
+    the wrapper's own choice)."""
     o, d, tc = _rays(device, w, h)
     worst = 0.0
     for name, ior, frac in K2_CASES:
         dev = build_scene(name, device)
-        for p in (0, 3):
-            got = bk.raytrace_fused(dev, o, d, tc, p, nb_bounces=bounces,
-                                    refract_ind=ior)
-            ref = bk.raytrace_fused(dev, o, d, tc, p, nb_bounces=bounces,
-                                    refract_ind=ior,
-                                    call=bk.fused_call_reference)
-            got, ref = got.cpu().numpy(), ref.cpu().numpy()
-            if not np.isfinite(got).all():
-                raise AssertionError(f"{name} pass {p}: non-finite K2 output")
-            off, err = fused_match(ref, got)
-            print(f"K2 parity {name} ior={ior} pass={p} "
-                  f"meshes={len(dev.mesh_prim_index)} "
-                  f"large_groups={len(dev.ana_groups)} "
-                  f"cull_small={bk.cull_small(dev)} "
-                  f"transparent={dev.has_transparent} "
-                  f"flat_face={dev.flat_face}: off={off:.4f} (allowed "
-                  f"{frac}) max_abs_err={err:.3e}", flush=True)
-            assert_fused_protocol(ref, got, f"K2 {name} pass {p}", frac)
-            worst = max(worst, err)
-        black = bk.raytrace_fused(dev, o, d, tc, 0, nb_bounces=0,
-                                  refract_ind=ior)
-        if not bool((black == 0).all()):
-            raise AssertionError(f"{name}: nb_bounces=0 is not black")
+        for whole in (False, True):
+            for p in (0, 3):
+                ref = bk.raytrace_fused(dev, o, d, tc, p, nb_bounces=bounces,
+                                        refract_ind=ior, whole_path=whole,
+                                        call=bk.fused_call_reference)
+                ref = ref.cpu().numpy()
+                for shape in bk.SHAPES + (None,):
+                    got = bk.raytrace_fused(
+                        dev, o, d, tc, p, nb_bounces=bounces, refract_ind=ior,
+                        whole_path=whole, call=_k2_call(shape)).cpu().numpy()
+                    what = (f"K2 {name} {'whole path' if whole else 'wavefront'}"
+                            f" pass {p} shape {shape or 'auto'}")
+                    if not np.isfinite(got).all():
+                        raise AssertionError(f"{what}: non-finite K2 output")
+                    off, err = fused_match(ref, got)
+                    print(f"{what} ior={ior} meshes={len(dev.mesh_prim_index)}"
+                          f" large_groups={len(dev.ana_groups)} "
+                          f"cull_small={bk.cull_small(dev)} "
+                          f"transparent={dev.has_transparent} "
+                          f"flat_face={dev.flat_face}: off={off:.4f} (allowed "
+                          f"{frac}) max_abs_err={err:.3e}", flush=True)
+                    assert_fused_protocol(ref, got, what, frac)
+                    worst = max(worst, err)
+            for shape in bk.SHAPES:
+                black = bk.raytrace_fused(dev, o, d, tc, 0, nb_bounces=0,
+                                          refract_ind=ior, whole_path=whole,
+                                          call=_k2_call(shape))
+                if not bool((black == 0).all()):
+                    raise AssertionError(f"{name}: nb_bounces=0 is not black")
     print("K2 parity nb_bounces=0: all black", flush=True)
     return worst
 
@@ -425,62 +508,137 @@ def _record_pass(r, pass_index):
     return rec
 
 
-def _time_launches(rec, reps=3):
-    """(ms per launch, ms per pass) of K2 over the recorded calls of one
-    pass, by CUDA events around each launch, the pass's work counters
-    (tri, box, prim, traces, lane slots of the chunk folds), and each
-    recorded call's mean ms."""
+def _time_launches(rec, shape=None, reps=5, count=True, ahead=True):
+    """K2 over the recorded calls of one pass in the given shape (None:
+    the kernel's choice), by CUDA events around each launch (_timed),
+    reps times: (ms per launch, ms per pass, the pass's work counters,
+    each call's ms, launches late). Each call's ms is its median over the
+    reps. The work counters (tri, box, prim, traces, lane slots of the
+    chunk folds) come from an untimed pass of K2's counting build, when
+    `count`; late counts the timed launches whose events held host
+    time."""
     work = torch.zeros(5, dtype=torch.int64, device=rec[0][1].device)
-    events = []
+    if count:
+        for inp, stf0, sti0, whole_path in rec:
+            bk.k2_launch(inp, stf0.clone(), sti0.clone(), whole_path, work,
+                         shape=shape)
+    events, late = [], 0
     for rep in range(reps):
         for inp, stf0, sti0, whole_path in rec:
             stf, sti = stf0.clone(), sti0.clone()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            bk.k2_launch(inp, stf, sti, whole_path,
-                         work if rep == 0 else None)
-            e1.record()
-            events.append((e0, e1))
+            _, ev, was_late = _timed(
+                lambda: bk.k2_launch(inp, stf, sti, whole_path, shape=shape),
+                ahead)
+            events.append(ev)
+            late += was_late
     torch.cuda.synchronize()
     ms = np.array([e0.elapsed_time(e1) for e0, e1 in events])
-    return (ms.mean(), ms.sum() / reps, [int(x) for x in work.cpu()],
-            ms.reshape(reps, len(rec)).mean(axis=0))
+    ms_call = np.median(ms.reshape(reps, len(rec)), axis=0)
+    return (ms_call.mean(), ms_call.sum(), [int(x) for x in work.cpu()],
+            ms_call, late)
 
 
 def _lane_share(work):
     """Share of the warps' lane slots in K2's chunk folds that tested a
-    triangle or prim for a thread that needed it (1 - divergence)."""
+    triangle or prim for a ray that needed it (1 - divergence)."""
     return f"{(work[0] + work[2]) / work[4]:.4f}" if work[4] else "none"
 
 
-def _k2_bound(rec, work, bounces):
-    """Least ms the card could take for the recorded pass's K2 work: the
-    tests K2 did (work counters: the local frame and shape test of each
-    prim test) and the small table per trace, one shading step per ray in
-    flight at each launch, and one hit point and normal per ray that is
-    still in flight at the tile's next bounce (it hit something; rec
-    holds each tile's `bounces` launches in order); each launch reads its
-    state and tables once and writes its state once."""
-    tri, box, prim, traces, _slots = work
+def _k2_need(rec):
+    """The plain version replayed on each recorded call's inputs on the
+    card, counting the work those inputs need (bk.K2Need, from each
+    trace's final best); returns it and the replay's ms per pass (CUDA
+    events)."""
+    need = bk.K2Need(rec[0][0], rec[0][1].device)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for inp, stf, sti, whole_path in rec:
+        bk.fused_call_reference(inp, stf.clone(), sti.clone(), whole_path,
+                                need=need)
+    e1.record()
+    torch.cuda.synchronize()
+    return need, e0.elapsed_time(e1)
+
+
+def _k2_bound(rec, need):
+    """Least ms the card could take for the recorded pass's K2 work, from
+    what its inputs need (_k2_need), not from K2's own walks: the
+    triangle, prim and slab tests of the chunks and supers each ray enters
+    within its trace's final best, one fold of the small table per trace,
+    one shading step per ray in flight, one hit point and normal per trace
+    that hits; each launch reads every ray's done flag, the rest of each
+    live ray's state and the tables once, and writes each live ray's
+    state once."""
     inp0 = rec[0][0]
-    alive = [int((sti[0] == 0).sum()) for _, _, sti, _ in rec]
-    steps = sum(alive)
-    hits = sum(a for i, a in enumerate(alive) if i % bounces)
-    ana_ops = (np.mean([PRIM_OPS[g[0]] for g in inp0.ana_groups])
-               if inp0.ana_groups else 0.0)
-    ops = (TRI_OPS * tri + BOX_OPS * box + ana_ops * prim
-           + traces * table_ops(inp0.tab, inp0.groups) + SHADE_OPS * steps
-           + WIN_OPS * hits)
+    prim_ops = sum(PRIM_OPS[g[0]] * int(n)
+                   for g, n in zip(inp0.ana_groups, need.prim.cpu()))
+    ops = (TRI_OPS * int(need.tri) + BOX_OPS * int(need.box) + prim_ops
+           + int(need.traced) * table_ops(inp0.tab, inp0.groups)
+           + SHADE_OPS * int(need.steps) + WIN_OPS * int(need.hits))
     tables = (inp0.tab, inp0.gsbb, inp0.msc, inp0.cbb, inp0.sbb, inp0.tpool,
               inp0.acbb, inp0.asbb, inp0.apool, inp0.agr)
     table_bytes = sum(t.numel() * t.element_size() for t in tables)
     nbytes = 0
     for inp, stf, sti, _ in rec:
-        nbytes += 2 * (stf.numel() * 4 + sti.numel() * 4) + table_bytes
+        live = int((sti[0] == 0).sum())
+        words = stf.shape[0] + sti.shape[0]         # 19 per ray
+        nbytes += 4 * sti.shape[1] + live * (2 * words - 1) * 4 + table_bytes
         nbytes += inp.ordr.numel() * 4 + inp.entr.numel() * 4
     ms, by = bound(nbytes, ops)
-    return ms, by, ops, nbytes, steps
+    print(f"K2 needed work of the pass (plain version's final best): "
+          f"{int(need.tri)} ray-triangle tests, {need.prim.tolist()} ray-prim "
+          f"tests per large group, {int(need.box)} ray-box tests, "
+          f"{int(need.traced)} traces ({int(need.hits)} hits), "
+          f"{int(need.steps)} bounce steps", flush=True)
+    return ms, by, ops, nbytes
+
+
+def _k2_by_shape(rec, bounces, ntiles, label):
+    """K2 over the recorded pass in the shape the kernel chooses ("auto")
+    and in each shape forced: ms per pass, by bounce with the rays in
+    flight, work and lane share, printed, and each launch's rays to scan
+    against each shape's time; returns {label: (ms per launch, ms per
+    pass, work, ms of each launch)}."""
+    out = {}
+    alive = [sum(int((sti[0] == 0).sum()) for _, _, sti, _ in rec[b::bounces])
+             for b in range(bounces)]
+    for name in ("auto",) + bk.SHAPES:
+        shape = None if name == "auto" else name
+        with clocks(f"K2 {label} shape {name} timed alone"):
+            ms_launch, ms_pass, work, ms_call, late = _time_launches(
+                rec, shape)
+        by_bounce = ms_call.reshape(ntiles, bounces).sum(axis=0)
+        print(f"K2 {label} shape {name}: {ms_launch:.4f} ms per launch, "
+              f"{ms_pass:.4f} ms per pass ({len(rec)} launches, median of "
+              f"5, {late} timed launches late); work per "
+              f"pass: {work[0]} ray-triangle tests, {work[2]} ray-prim tests, "
+              f"{work[1]} ray-box tests, {work[3]} traces; lane share of the "
+              f"chunk folds {_lane_share(work)}", flush=True)
+        print(f"K2 {label} shape {name} by bounce (ms per pass, rays in "
+              f"flight): " + ", ".join(
+                  f"{b}: {t:.4f} ms {a}"
+                  for b, (t, a) in enumerate(zip(by_bounce, alive))),
+              flush=True)
+        out[name] = (ms_launch, ms_pass, work, ms_call)
+    # the same launches timed as before this harness kept the card ahead:
+    # the events then also hold the time the card waits for the host to
+    # queue each launch
+    paced = _time_launches(rec, None, count=False, ahead=False)
+    print(f"K2 {label} shape auto, host-paced events: {paced[0]:.4f} ms per "
+          f"launch, {paced[1]:.4f} ms per pass ({paced[4]} of "
+          f"{5 * len(rec)} launches late)", flush=True)
+    # launch by launch: the rays to scan against each shape's time, from
+    # which MANY_RAYS is set, and the shape the kernel took
+    scan = [int(bk._n_scan(sti)) for _, _, sti, _ in rec]
+    print(f"K2 {label} per launch (rays to scan: "
+          + " / ".join(f"{k} lanes" for k in bk.SHAPES) + " ms, taken): "
+          + ", ".join(
+              f"{scan[i]}: " + " / ".join(f"{out[k][3][i]:.3f}"
+                                          for k in bk.SHAPES)
+              + f" {bk.k2_shape(scan[i], rec[i][3])}"
+              for i in sorted(range(len(rec)), key=lambda i: scan[i])),
+          flush=True)
+    return out
 
 
 def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
@@ -525,31 +683,22 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
           f"{wall_pass * 1e3:.4f} ms wall per pass; device idle share {idle}",
           flush=True)
 
-    # K2 alone, by CUDA events over one recorded pass's launches
+    # K2 alone, by CUDA events over one recorded pass's launches, in the
+    # shapes the wrapper chose and in each shape forced
     rec = _record_pass(r, r.nb_passes)
-    ms_launch, ms_pass, work, ms_call = _time_launches(rec)
-    bound_ms, bound_by, ops, nbytes, steps = _k2_bound(rec, work, bounces)
-    print(f"K2 alone: {ms_launch:.4f} ms per launch, {ms_pass:.4f} ms per "
-          f"pass ({len(rec)} launches); work per pass: {work[0]} "
-          f"ray-triangle tests, {work[1]} ray-box tests, {work[3]} traces, "
-          f"{steps} bounce steps; bound {bound_ms:.4f} ms per pass "
-          f"({bound_by}: {ops:.4g} FP32 operations, {nbytes} bytes); lane "
-          f"share of the chunk folds {_lane_share(work)}", flush=True)
-    # by bounce, summed over the tiles (rec holds each tile's launches in
-    # bounce order): K2's ms and the rays still in flight
-    by_bounce = ms_call.reshape(r._ntiles, bounces).sum(axis=0)
-    alive = [sum(int((sti[0] == 0).sum()) for _, _, sti, _ in rec[b::bounces])
-             for b in range(bounces)]
-    print("K2 by bounce (ms per pass, rays in flight): " + ", ".join(
-        f"{b}: {t:.4f} ms {a}" for b, (t, a) in enumerate(zip(by_bounce,
-                                                               alive))),
-          flush=True)
+    by_shape = _k2_by_shape(rec, bounces, r._ntiles, "mesh_demo")
+    ms_launch, ms_pass = by_shape["auto"][:2]
+    need, replay_ms = _k2_need(rec)
+    bound_ms, bound_by, ops, nbytes = _k2_bound(rec, need)
+    print(f"K2 alone (auto): {ms_launch:.4f} ms per launch, {ms_pass:.4f} ms "
+          f"per pass; bound {bound_ms:.4f} ms per pass ({bound_by}: {ops:.4g} "
+          f"FP32 operations, {nbytes} bytes); plain version on the same "
+          f"launches {replay_ms:.1f} ms", flush=True)
 
     # the host's share: the per-bounce re-sort and schedules, each timed
     # alone on a bounce-1 state of tile 0 (host clock, synchronized)
     inp, stf, sti, _ = rec[1]
     lo, hi = dev.prim_bb_min.amin(dim=0), dev.prim_bb_max.amax(dim=0)
-
     def sort_once():
         key = ray_sort_key((stf[0], stf[1], stf[2]), (stf[3], stf[4], stf[5]),
                            sti[0] != 0, lo, hi)
@@ -593,12 +742,15 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
     return dict(rays_per_s=rays_per_s, window_s=window_s, launches=launches,
                 ms_launch=ms_launch, k2_ms=ms_pass, plain_ms=plain_ms,
                 max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
-                wall_pass_ms=wall_pass * 1e3)
+                wall_pass_ms=wall_pass * 1e3, by_shape=by_shape)
 
 
 def phase_k2_whole_path(device, w=800, h=600, bounces=3, window=4,
-                        tile_rays=1 << 17):
-    """A short window of K2's whole-path mode on stress_10k."""
+                        tile_rays=1 << 17, ws=200, hs=150):
+    """K2's whole-path mode on stress_10k: a short window at w x h, K2 by
+    shape over one recorded pass; then a 1-pass accumulation at ws x hs
+    against the plain version, with K2's time, the plain version's and
+    the bound on that pass."""
     dev = compile_scene(scenes.build("stress_10k"), device=device)
     if dev.mesh_prim_index or not dev.ana_groups:
         raise AssertionError("stress_10k should be analytic with large groups")
@@ -619,14 +771,41 @@ def phase_k2_whole_path(device, w=800, h=600, bounces=3, window=4,
     img = r.image()
     if not np.isfinite(img).all() or (img < 0).any():
         raise AssertionError("stress_10k image is not finite and >= 0")
-    _, ms_pass, work, _ = _time_launches(_record_pass(r, r.nb_passes))
     print(f"K2 whole path: stress_10k {w}x{h} {bounces} bounces, "
           f"{len(dev.ana_groups)} large groups, {window}-pass window "
           f"{window_s:.4f} s ({window_s / window * 1e3:.3f} ms wall per pass, "
-          f"{w * h * window * bounces / window_s:.6g} rays/s); K2 "
-          f"{ms_pass:.4f} ms per pass by CUDA events; work per pass: "
-          f"{work[2]} ray-prim tests, {work[1]} ray-box tests; lane share of "
-          f"the chunk folds {_lane_share(work)}", flush=True)
+          f"{w * h * window * bounces / window_s:.6g} rays/s)", flush=True)
+    rec = _record_pass(r, r.nb_passes)
+    by_shape = _k2_by_shape(rec, 1, r._ntiles, f"stress_10k {w}x{h}")
+
+    # a small accumulation against the plain version, and the bound
+    cfg_s = RenderConfig(width=ws, height=hs, nb_bounces=bounces,
+                         tile_rays=tile_rays, use_kernels=True, device=device)
+    rs = Renderer(dev, cfg_s)
+    img_k2 = rs.run(1)
+    acc = torch.zeros_like(rs._acc)
+    for t in range(rs._ntiles):
+        acc[t].add_(bk.raytrace_fused(
+            dev, rs._origin, rs._dirs[t], rs._tc[t], 0, nb_bounces=bounces,
+            refract_ind=cfg_s.refract_ind, date=cfg_s.date,
+            call=bk.fused_call_reference))
+    img_ref = rs.resolve(acc, 1)
+    off, err = fused_match(img_ref, img_k2)
+    print(f"K2 whole path stress_10k 1-pass K2 vs plain at {ws}x{hs}: "
+          f"off={off:.4f} (allowed {FUSED_FRAC_STRESS}) max_abs_err={err:.3e}",
+          flush=True)
+    assert_fused_protocol(img_ref, img_k2, "stress_10k 1 pass",
+                          FUSED_FRAC_STRESS)
+    rec_s = _record_pass(rs, 0)
+    small = _k2_by_shape(rec_s, 1, rs._ntiles, f"stress_10k {ws}x{hs}")
+    need, replay_ms = _k2_need(rec_s)
+    bound_ms, bound_by, ops, nbytes = _k2_bound(rec_s, need)
+    print(f"K2 whole path stress_10k {ws}x{hs}: K2 {small['auto'][1]:.4f} ms "
+          f"per pass; bound {bound_ms:.4f} ms ({bound_by}: {ops:.4g} FP32 "
+          f"operations, {nbytes} bytes); plain version {replay_ms:.1f} ms",
+          flush=True)
+    return dict(by_shape=by_shape, small=small, bound_ms=bound_ms,
+                plain_ms=replay_ms, max_abs_err=err)
 
 
 # --------------------------------------------------------------------------
@@ -735,16 +914,16 @@ def _needed(kid, args, out, work):
     that cost HIT_OPS more (K3a, K3b, K5), and the slab tests that cost
     BOX_OPS each (K3b, K4b). A brute fold (K3a, K4a) tests every ray
     against every real prim or triangle; K3a's hits are its counted
-    shape-test passes, the same for any order of that fold. A culled fold
-    tests every ray against every real chunk box (K3b) or every super box
-    and, in the supers the ray enters within its final best, every real
-    leaf box (K4b), and must fold the chunks whose box the ray enters
-    within its final best (_culled_needed). A walk (K5, K6) must fold,
-    for each ray, every block or chunk of its tile's ranked list whose
-    entry bound lies below the ray's final min(best, bound): any of them
-    could hold a closer hit. K3b's and K5's hits are counted once per ray
-    with a winner, the least any fold needs. `out` is the launch's result,
-    `work` its counters."""
+    shape-test passes, the same for any order of that fold. Every culled
+    fold and walk has one rule: a ray must fold the real prims or
+    triangles of each chunk or block whose box it enters within its final
+    best (K3b, K4b: _culled_needed; a culled fold tests every ray against
+    every real chunk box, K3b, or every super box and, in the supers the
+    ray enters so, every real leaf box, K4b) or its final min(best,
+    bound) (K5: the 8-prim blocks' boxes sup_bb; K6: the 128-triangle
+    chunks' boxes, the bounds of their real triangles). K3b's and K5's
+    hits are counted once per ray with a winner, the least any fold
+    needs. `out` is the launch's result, `work` its counters."""
     o = args[0]
     zero = torch.zeros((), dtype=torch.int64, device=o.device)
     if kid == "K3a":
@@ -755,21 +934,40 @@ def _needed(kid, args, out, work):
     if kid in ("K3b", "K4b"):
         return _culled_needed(kid, args, out)
     if kid == "K5":
-        tab, order, tlo_sorted, bound = args[2:6]
+        tab, bnd, boxes = args[2], args[5], args[7]
         per_unit = (tab[:, 24, :] > 0).sum(dim=1)
-        best, tile = out[0], spk.AN_TILE
     else:
-        tri, order, tlo_sorted, bound = args[2:6]
-        per_unit = (tri != 0).any(dim=0).reshape(-1, ptk.PRIM_CHUNK).sum(dim=1)
-        best, tile = out[0], spk.MESH_TILE
-    nt = order.shape[0]
-    thr = torch.minimum(best, bound).reshape(nt, tile).contiguous()
-    reach = (tlo_sorted < spk.INF).sum(dim=1, keepdim=True)
-    need = torch.minimum(torch.searchsorted(tlo_sorted, thr), reach)
-    cum = torch.cat([torch.zeros((nt, 1), dtype=torch.int64, device=o.device),
-                     per_unit[order.long()].cumsum(dim=1)], dim=1)
-    tests = cum.gather(1, need).sum()
+        tri, bnd = args[2], args[5]
+        real = (tri != 0).any(dim=0)
+        per_unit = real.reshape(-1, ptk.PRIM_CHUNK).sum(dim=1)
+        boxes = _tri_chunk_boxes(tri, real)
+    cap = torch.minimum(out[0], bnd)
+    units = per_unit > 0
+    tests = _entered_items(o, safe_rcp(args[1]), boxes[:, units], cap,
+                           per_unit[units])
     return tests, ((out[1] >= 0).sum() if kid == "K5" else zero), zero
+
+
+def _tri_chunk_boxes(tri, real):
+    """[6, n] boxes of the n 128-triangle chunks of tri [9, n * 128]: the
+    bounds of their real triangles' corners (compile_scene's chunk
+    boxes); empty (inf, -inf) for a chunk with none."""
+    corners = tri.reshape(3, 3, -1)                   # [corner, xyz, tri]
+    lo = torch.where(real, corners, float("inf")).amin(dim=0)
+    hi = torch.where(real, corners, float("-inf")).amax(dim=0)
+    return torch.cat([lo.reshape(3, -1, ptk.PRIM_CHUNK).amin(dim=2),
+                      hi.reshape(3, -1, ptk.PRIM_CHUNK).amax(dim=2)])
+
+
+def _entered_items(o, rd, boxes, cap, per_box, step=64):
+    """The sum over rays and box columns of boxes [6, n] of per_box [n]
+    where the ray enters the box within its cap (the kernels' slab test),
+    `step` boxes at a time."""
+    total = torch.zeros((), dtype=torch.int64, device=o.device)
+    for c in range(0, boxes.shape[1], step):
+        hit = _enters(o, rd, boxes[:, c:c + step], cap)
+        total += (hit.to(torch.int64) * per_box[None, c:c + step]).sum()
+    return total
 
 
 def _enters(o, rd, boxes, best, step=64):
@@ -823,31 +1021,30 @@ def _launch_bytes(kid, args):
     return ins + (16 if kid in ("K3a", "K5") else 8) * m
 
 
-def _time_recorded(kid, rec, reps=2):
+def _time_recorded(kid, rec, reps=3, ahead=True, count=True):
     """Kernel kid over the recorded launches of one pass, by CUDA events
-    around each launch: (ms of each launch, averaged over reps; the
-    launch's work counters [tests, chunks or blocks visited, hits, and
-    N_WORK's more]; the work its function needs [tests, hits, box tests],
-    see _needed)."""
+    around each launch (_timed), reps times after an untimed pass that
+    counts (when `count`): (ms of each launch, its median over the reps;
+    the launch's work counters [tests, chunks or blocks visited, hits,
+    and N_WORK's more]; the work its function needs [tests, hits, box
+    tests], see _needed; the timed launches late)."""
     dev = rec[0][1][0].device
     work = torch.zeros((len(rec), N_WORK.get(kid, 3)), dtype=torch.int64,
                        device=dev)
     needed = torch.zeros((len(rec), 3), dtype=torch.int64, device=dev)
-    events = []
+    for i, (real, args, kw) in enumerate(rec if count else ()):
+        out = real(*args, **kw, work=work[i])
+        needed[i] = torch.stack(_needed(kid, args, out, work[i]))
+    events, late = [], 0
     for rep in range(reps):
-        for i, (real, args, kw) in enumerate(rec):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            out = real(*args, **kw, work=work[i] if rep == 0 else None)
-            e1.record()
-            events.append((e0, e1))
-            if rep == 0:                    # after e1: not timed
-                needed[i] = torch.stack(_needed(kid, args, out, work[i]))
+        for real, args, kw in rec:
+            _, ev, was_late = _timed(lambda: real(*args, **kw), ahead)
+            events.append(ev)
+            late += was_late
     torch.cuda.synchronize()
     ms = np.array([e0.elapsed_time(e1) for e0, e1 in events])
-    return (ms.reshape(reps, len(rec)).mean(axis=0), work.cpu().numpy(),
-            needed.cpu().numpy())
+    return (np.median(ms.reshape(reps, len(rec)), axis=0), work.cpu().numpy(),
+            needed.cpu().numpy(), late)
 
 
 def _plain_vs_kernel(kid, rec, n=8, sub=None):
@@ -1063,7 +1260,7 @@ def phase_k4b_stats(rec):
     """K4b over phase 7's launches: ms per launch (CUDA events), its work
     and bound, and the plain version on the same launches. No render
     route reaches K4b, so these are its numbers."""
-    ms, work, needed = _time_recorded("K4b", rec)
+    ms, work, needed, _ = _time_recorded("K4b", rec)
     ops = sum(_needed_ops("K4b", args, int(n[0]), int(n[1]), int(n[2]))
               for n, (_, args, _) in zip(needed, rec))
     nbytes = sum(_launch_bytes("K4b", args) for _, args, _ in rec)
@@ -1146,7 +1343,9 @@ def _pass_stats(kid, r, rec):
     """Kernel kid over one recorded pass: printed ms per launch and pass,
     by bounce, its work and bound; returns (ms per launch, ms per pass,
     bound ms per launch, bound ms per pass, bounded by)."""
-    ms, work, needed = _time_recorded(kid, rec)
+    with clocks(f"{kid} timed alone"):
+        ms, work, needed, late = _time_recorded(kid, rec)
+    paced = _time_recorded(kid, rec, reps=1, ahead=False, count=False)
     ops = sum(_needed_ops(kid, args, int(n[0]), int(n[1]), int(n[2]))
               for n, (_, args, _) in zip(needed, rec))
     nbytes = sum(_launch_bytes(kid, args) for _, args, _ in rec)
@@ -1156,7 +1355,10 @@ def _pass_stats(kid, r, rec):
     by_bounce = ms.reshape(r._ntiles, r.config.nb_bounces,
                            per_bounce).sum(axis=(0, 2))
     print(f"{kid} alone: {ms.mean():.4f} ms per launch, {ms.sum():.4f} ms "
-          f"per pass ({len(rec)} launches); work per pass: "
+          f"per pass ({len(rec)} launches, median of 3, {late} timed "
+          f"launches late; host-paced events, as before: "
+          f"{paced[0].mean():.4f} ms per launch, {paced[3]} of {len(rec)} "
+          f"late); work per pass: "
           f"{int(work[:, 0].sum())} tests done ({int(needed[:, 0].sum())} "
           f"needed), {int(work[:, 2].sum())} hits ({int(needed[:, 1].sum())}"
           f" needed), {int(work[:, 1].sum())} chunks or blocks visited"
@@ -1440,6 +1642,30 @@ def phase_fma(trace, n=8):
               f"{rel:.2e}, max abs err {err:.3e}", flush=True)
 
 
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def print_registers(log, kernel):
+    """Each compiled variant of `kernel` in an nvcc -Xptxas -v report:
+    its registers and spill bytes, one line each."""
+    entry, spill = None, (0, 0)
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry, spill = m.group(1), (0, 0)
+            continue
+        m = _SPILL.search(line)
+        if m and entry:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = _REGS.search(line)
+        if m and entry and kernel in entry:
+            print(f"{kernel} {entry}: {m.group(1)} registers, spill stores "
+                  f"{spill[0]} bytes, loads {spill[1]} bytes", flush=True)
+            entry = None
+
+
 def _trace_line(kid, res):
     name, replaces, _ = TRACE_KERNELS[kid]
     return {"name": name, "route": "cuda", "source": TRACE_SOURCE,
@@ -1456,7 +1682,8 @@ def main() -> int:
     name_power = card()
     print(name_power, flush=True)
     t0 = time.perf_counter()
-    kernels.build_all(["megakernel", "bounce_kernel", "trace_kernels"])
+    kernels.build_all(["megakernel", "bounce_kernel", "trace_kernels"],
+                      [("bounce_kernel", kernels.K2_COUNTS)])
     kernels.megakernel_lib()
     kernels.bounce_kernel_lib()
     kernels.trace_kernels_lib()
@@ -1465,6 +1692,8 @@ def main() -> int:
     print(kernels.build_log("megakernel").strip(), flush=True)
     print(kernels.build_log("bounce_kernel").strip(), flush=True)
     print(kernels.build_log("trace_kernels").strip(), flush=True)
+    print_registers(kernels.build_log("bounce_kernel"), "fused_kernel")
+    print_registers(kernels.build_log("trace_kernels"), "an_walk")
 
     worst = phase_parity("cuda")
     res = phase_main_path("cuda")
@@ -1481,10 +1710,18 @@ def main() -> int:
     print(f"[{name_power}] mesh_demo end to end {res2['rays_per_s']:.6g} "
           f"rays/s (800x600 x 8 passes x 8 bounces / "
           f"{res2['window_s']:.4f} s); K2 {res2['ms_launch']:.4f} ms/launch, "
-          f"{res2['k2_ms']:.4f} ms/pass (bound {res2['bound_ms']:.4f} ms, "
+          f"{res2['k2_ms']:.4f} ms/pass (forced: " + ", ".join(
+              f"{k} {v[1]:.4f}" for k, v in res2["by_shape"].items()
+              if k != "auto") + f"; bound {res2['bound_ms']:.4f} ms, "
           f"{res2['bound_by']}); plain version {res2['plain_ms']:.1f} ms/pass",
           flush=True)
-    phase_k2_whole_path("cuda")
+    res6 = phase_k2_whole_path("cuda")
+    print(f"[{name_power}] stress_10k whole path: K2 " + ", ".join(
+        f"{k} {v[1]:.4f}" for k, v in res6["by_shape"].items())
+          + " ms/pass at 800x600; at 200x150 " + ", ".join(
+        f"{k} {v[1]:.4f}" for k, v in res6["small"].items())
+          + f" ms/pass (bound {res6['bound_ms']:.4f} ms, plain "
+          f"{res6['plain_ms']:.1f} ms)", flush=True)
 
     worst3, rec4b, k4b_launches = phase_trace_parity("cuda")
     print(f"phase-7 trace kernel parity worst max_abs_err {worst3}",

@@ -19,15 +19,40 @@
 // PyTorch version is models/bounce_kernel.py::fused_call_reference;
 // chip_smoke.py holds the two against each other.
 //
-// Design. One thread per ray, 128 threads per block, all per-ray state in
-// registers. In wavefront mode each thread reads column `ray` of the
-// [15, M] f32 and [4, M] int32 state and writes it back in place, so the
-// accesses are coalesced. The TPU's 1024-ray tile survives only as the row
-// of the host's super schedule a ray reads (ord/ent[ray / 1024]). The
-// TPU's 16-slot DMA ring, its per-sublane predication and its MXU one-hot
-// winner gather are not carried over: a thread walks the chunks itself and
-// keeps the index of its winning triangle or prim, whose attributes it
-// reads once at the merge.
+// Design. All per-ray state in registers; in wavefront mode a ray's column
+// `ray` of the [15, M] f32 and [4, M] int32 state is read and written back
+// in place. The TPU's 1024-ray tile survives only as the row of the host's
+// super schedule a ray reads (ord/ent[ray / 1024]). The TPU's 16-slot DMA
+// ring, its per-sublane predication and its MXU one-hot winner gather are
+// not carried over: the walk keeps the index of its winning triangle or
+// prim and reads that one's attributes once, at the merge.
+//
+// Lanes per ray. A group of L lanes of a warp owns one ray. Its lanes split
+// each chunk's 128 triangles or prims, 128 / L each, neighbouring lanes on
+// neighbouring columns (coalesced), and reduce to the least `a` (meshes) or
+// world distance (large groups), the lowest column on equal values
+// (group_min): the winner of the ascending strict-`<` scan, bit for bit.
+// The group's best then gates the next chunk. Everything else (the path
+// state, the RNG, the small table, the walk's decisions, the merge and the
+// bounce step) every lane of the group computes alike, and lane 0 writes the
+// ray back. A group folds only the chunks its own ray enters, where a warp
+// of 32 rays folds every chunk that one of them enters. The grid holds the
+// blocks the card keeps resident; each group takes every so-many-th ray of
+// [0, n_scan), n_scan being the last live ray's index + 1, which the wrapper
+// computes as a device scalar. From bounce 1 the host's re-sort sends
+// finished rays to the tail (ops/sort_rays.py), so a few thousand live rays
+// still spread over every SM, L lanes each.
+//
+// Two shapes, one kernel body: 8 lanes per ray (LANES_MANY) in whole-path
+// mode and for a wavefront launch with MANY_RAYS or more rays to scan, 16
+// (LANES_FEW) below. The lanes per ray are a runtime value, so the kernel
+// reads n_scan and picks, and no count comes back to the host; a caller may
+// force either shape (models/bounce_kernel.py mirrors the rule and checks
+// its copy against fused_shape_rule). On an H100 (chip_smoke.py phase 5,
+// PERF.md) 8 lanes fold coherent primaries and whole paths faster (a group
+// spends less of its time on the work every lane repeats: the slab gates,
+// the small table, shading), 16 the sparse late bounces. One lane per ray
+// (the first design) and 32 lanes measured slower than both in trials.
 //
 // The walks. The outer trace (the first trace of a launch) visits an
 // instance's supers in the tile's nearest-first schedule and stops, per
@@ -41,19 +66,20 @@
 // triangles or prims are tested.
 //
 // What bounds it on this card: the FP32 instruction rate of the
-// Moller-Trumbore and shape tests (about 60 FP32 operations per
-// ray-triangle test, 25 per ray-box test, 60-150 per ray-prim test),
-// divergence (rays of one warp pass different chunk gates and stop their
-// walks at different supers) and, on late bounces, occupancy: a few
-// thousand live rays fill about one block per SM, each thread walking its
-// chunks alone, with 168-255 registers and some spills. On an NVIDIA H100
-// 80GB HBM3 at 700 W (chip_smoke.py), 43% of the lanes in mesh_demo's
-// chunk folds did useful work, and bounces with 3% of the rays in flight
-// took longer than the first. Memory is not the bound: mesh_demo's
-// triangle pool is 737 KB and lives in L2 (50 MB), and a warp's threads
-// that test the same chunk read the same addresses. The simple design
-// answers with the per-ray early exit of the scheduled walk, the per-ray
-// chunk gates, and finished rays leaving the bounce loop.
+// Moller-Trumbore and shape tests (about 51 FP32 operations per
+// ray-triangle test, 25 per ray-box test, 47-86 per ray-prim test),
+// divergence between the rays of a warp, and latency at low occupancy on
+// sparse bounces (128-255 registers a thread). Lanes per ray answers the
+// last two: a group folds only its own ray's chunks, and the live rays'
+// tests spread over L times as many lanes. Memory is not the bound:
+// mesh_demo's triangle pool is 737 KB and lives in L2 (50 MB).
+//
+// Registers. ptxas gives the variants 128-255 registers and spills part of
+// the path state to local memory, which stays in L1. A launch bound of 2
+// or 3 blocks per SM (168-255 registers) spills less or nothing but
+// measured slower on an H100, in both modes: here the resident warps, not
+// the spills, decide how much of the walks' latency is hidden.
+// chip_smoke.py prints each variant's registers and spills (PERF.md).
 //
 // Deliberate difference: the large-group merge recomputes the winner's hit
 // and takes it only where that recomputation is valid. The reference
@@ -76,6 +102,13 @@ constexpr int TRI_ROWS = 18;   // triangle chunk rows: corners a b c, normals
 constexpr int ANA_ROWS = 32;   // prim chunk rows: inverse, forward, material,
                                // rgba, ok flag
 constexpr float INF = 3e38f;
+constexpr int NONE = 0x7fffffff;  // no candidate in a lane's share of a chunk
+// lanes per ray when a launch has MANY_RAYS or more rays to scan, and when
+// it has fewer: the threshold is set from each shape's time per launch
+// against its rays to scan on an H100 (chip_smoke.py phase 5)
+constexpr int LANES_MANY = 8;
+constexpr int LANES_FEW = 16;
+constexpr int MANY_RAYS = 32768;
 
 struct Params {
   float* stf;          // [15,M] o d attenu total result, in place
@@ -93,24 +126,70 @@ struct Params {
   const int* ana;      // [A,4] (shape code, chunk start, chunks, super start)
   const int* ord;      // [M/TILE,1,Stot] nearest-first super order per tile
   const float* ent;    // [M/TILE,1,Stot] its conservative entry bounds
-  unsigned long long* counts;  // [5] work counters (Counts), or null
+  const int* n_scan;   // [1] rays to scan: every live ray has a lower index
+  unsigned long long* counts;  // [5] work counters (Counts; K2_COUNTS builds)
   float ior;
   int M, n_mesh, Cm, Sm, Ca, Sa, A, Stot, mesh_stot, sched_base, whole_path;
+  int lanes;  // lanes per ray: LANES_MANY or LANES_FEW, or 0 to choose
 };
 
-// the work one thread did, summed over the launch into Params::counts when
-// that is set: ray-triangle tests, ray-box tests of chunks and supers,
-// ray-prim tests of the large groups, traces, and the lane slots the warps
-// spent on chunk folds (tri + prim over slots is the share of lanes that
-// did useful work there: divergence costs the rest)
+// The launch's work, in a build with -DK2_COUNTS (kernels.py makes one for
+// k2_launch's `work`; without it the counting code is not compiled, since
+// it slowed both shapes even when nothing was counted), added to
+// Params::counts: [TRI] ray-triangle tests, [BOX] ray-box tests of chunks
+// and supers, [PRIM] ray-prim tests of the large groups, [TRACE] traces,
+// and [SLOTS] the lane slots the warps spent on chunk folds. A group's L
+// lanes count 128 / L tests each of a chunk they fold, its box tests and
+// traces count once (on lane 0); a warp's fold of a chunk takes 128 / L
+// steps of its 32 lanes, 32 * 128 / L slots, counted once per warp and fold
+// by its lowest active lane, so that (tri + prim) / slots is the share of
+// the warps' lanes that did useful work in the folds (divergence between
+// rays costs the rest).
+enum { TRI, BOX, PRIM, TRACE, SLOTS, N_COUNTS };
 struct Counts {
-  uint32_t tri = 0, box = 0, prim = 0, trace = 0, slots = 0;
+#ifdef K2_COUNTS
+  uint32_t v[N_COUNTS] = {};
+  __device__ void add(int k, uint32_t x) { v[k] += x; }
+#else
+  __device__ void add(int, uint32_t) {}
+#endif
 };
 
-// a warp runs a chunk's fold once for all of its threads that take it:
-// the lowest of them counts the warp's 32 x CHUNK lane slots
-__device__ __forceinline__ void count_slots(Counts& n) {
-  if ((threadIdx.x % 32) == __ffs(__activemask()) - 1) n.slots += 32 * CHUNK;
+// the lanes of a warp that own one ray: LANES_MANY or LANES_FEW of them,
+// aligned
+struct Group {
+  int lanes;      // lanes per ray
+  int lane;       // this thread's lane in its group
+  unsigned mask;  // the group's lanes in the warp
+  __device__ explicit Group(int n) : lanes(n) {
+    const int wl = threadIdx.x % 32;
+    lane = wl & (n - 1);
+    mask = ((1u << n) - 1u) << (wl - lane);
+  }
+  __device__ bool lead() const { return lane == 0; }
+};
+
+// one chunk fold of the group: its lanes' tests, and the warp's lane slots
+__device__ __forceinline__ void count_fold(Counts& n, int what, const Group& g) {
+  n.add(what, CHUNK / g.lanes);
+#ifdef K2_COUNTS
+  if ((threadIdx.x % 32) == __ffs(__activemask()) - 1) n.add(SLOTS, 32 * CHUNK / g.lanes);
+#endif
+}
+
+// the group's least (value, index), the lowest index on equal values: the
+// candidate an ascending scan with a strict `<` keeps. Every lane ends with
+// it (a butterfly over the group's lanes; an xor below `lanes` stays inside
+// the aligned group).
+__device__ __forceinline__ void group_min(const Group& g, float& v, int& i) {
+  for (int off = g.lanes / 2; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(g.mask, v, off);
+    const int oi = __shfl_xor_sync(g.mask, i, off);
+    if (ov < v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
 }
 
 // the per-ray cap of a walk: the exit from the root box (column `col` of
@@ -134,35 +213,47 @@ __device__ __forceinline__ V3 row3(const float* blk, int row, int t) {
 // ---------------------------------------------------------------------------
 
 // Moller-Trumbore of the 128 triangles of chunk c against the local unit
-// ray; a valid hit strictly closer than abest becomes the winner
+// ray, the group's lanes taking columns lane, lane + L, ... (coalesced); a
+// valid hit strictly closer than abest becomes the winner, the lowest
+// column on equal parameters, as the ascending scan
 __device__ __forceinline__ void fold_tris(const float* __restrict__ tpool, int c, V3 oi, V3 di,
-                                          float& abest, int& best, Counts& n) {
+                                          float& abest, int& best, const Group& g,
+                                          Counts& n) {
   const float* blk = tpool + static_cast<size_t>(c) * TRI_ROWS * CHUNK;
-  n.tri += CHUNK;
-  count_slots(n);
-  for (int t = 0; t < CHUNK; ++t) {
+  count_fold(n, TRI, g);
+  float al = abest;
+  int il = NONE;
+  for (int k = 0; k < CHUNK / g.lanes; ++k) {
+    const int t = g.lane + k * g.lanes;
     float a;
-    if (mt_hit(row3(blk, 0, t), row3(blk, 3, t), row3(blk, 6, t), oi, di, a) && a < abest) {
-      abest = a;
-      best = c * CHUNK + t;
+    if (mt_hit(row3(blk, 0, t), row3(blk, 3, t), row3(blk, 6, t), oi, di, a) && a < al) {
+      al = a;
+      il = c * CHUNK + t;
     }
+  }
+  group_min(g, al, il);
+  if (il != NONE) {
+    abest = al;
+    best = il;
   }
 }
 
 __device__ __forceinline__ void visit_tri_super(const Params& p, int c0, V3 oi, V3 di, V3 rdi,
-                                                float bound, float& abest, int& best, Counts& n) {
-  n.box += TRI_SUPER;
+                                                float bound, float& abest, int& best,
+                                                const Group& g, Counts& n) {
+  if (g.lead()) n.add(BOX, TRI_SUPER);
   for (int j = 0; j < TRI_SUPER; ++j) {
     const int c = c0 + j;
     if (slab_cap(p.cbb, p.Cm, c, oi, rdi, fminf(abest, bound)))
-      fold_tris(p.tpool, c, oi, di, abest, best, n);
+      fold_tris(p.tpool, c, oi, di, abest, best, g, n);
   }
 }
 
 // walk mesh instance mi and merge its winner into w by world distance
 template <bool FLAT>
 __device__ void mesh_instance(const Params& p, int mi, bool scheduled, const int* ord_row,
-                              const float* ent_row, V3 o, V3 d, Win& w, Counts& n) {
+                              const float* ent_row, V3 o, V3 d, Win& w, const Group& g,
+                              Counts& n) {
   const int nm = p.n_mesh;
   float iv[12];
 #pragma unroll
@@ -185,13 +276,13 @@ __device__ void mesh_instance(const Params& p, int mi, bool scheduled, const int
     for (int k = 0; k < nsup; ++k) {
       if (!(__ldg(ent_row + sstart + k) < fminf(abest, bound))) break;
       const int s = __ldg(ord_row + sstart + k);
-      visit_tri_super(p, cstart + s * TRI_SUPER, oi, di, rdi, bound, abest, best, n);
+      visit_tri_super(p, cstart + s * TRI_SUPER, oi, di, rdi, bound, abest, best, g, n);
     }
   } else {
-    n.box += nsup;
+    if (g.lead()) n.add(BOX, nsup);
     for (int s = 0; s < nsup; ++s) {
       if (slab_cap(p.sbb, p.Sm, sstart + s, oi, rdi, fminf(abest, bound)))
-        visit_tri_super(p, cstart + s * TRI_SUPER, oi, di, rdi, bound, abest, best, n);
+        visit_tri_super(p, cstart + s * TRI_SUPER, oi, di, rdi, bound, abest, best, g, n);
     }
   }
   if (best < 0) return;
@@ -264,42 +355,53 @@ __device__ __forceinline__ bool ana_candidate(const float* blk, int t, V3 o, V3 
   return true;
 }
 
+// the 128 prims of chunk c in world distance, split over the group's lanes
+// as fold_tris does
 template <int SHAPE>
 __device__ __forceinline__ void fold_prims(const float* __restrict__ apool, int c, V3 o, V3 d,
-                                           float& abest, int& best, Counts& n) {
+                                           float& abest, int& best, const Group& g,
+                                           Counts& n) {
   const float* blk = apool + static_cast<size_t>(c) * ANA_ROWS * CHUNK;
-  n.prim += CHUNK;
-  count_slots(n);
-  for (int t = 0; t < CHUNK; ++t) {
+  count_fold(n, PRIM, g);
+  float al = abest;
+  int il = NONE;
+  for (int k = 0; k < CHUNK / g.lanes; ++k) {
+    const int t = g.lane + k * g.lanes;
     if (!(__ldg(blk + 31 * CHUNK + t) > 0.0f)) continue;  // chunk padding
     float dist;
     int code;
     V3 pl, pg;
-    if (ana_candidate<SHAPE>(blk, t, o, d, dist, code, pl, pg) && dist < abest) {
-      abest = dist;
-      best = c * CHUNK + t;
+    if (ana_candidate<SHAPE>(blk, t, o, d, dist, code, pl, pg) && dist < al) {
+      al = dist;
+      il = c * CHUNK + t;
     }
+  }
+  group_min(g, al, il);
+  if (il != NONE) {
+    abest = al;
+    best = il;
   }
 }
 
 template <int SHAPE>
 __device__ __forceinline__ void visit_ana_super(const Params& p, int c0, V3 o, V3 d, V3 rd,
-                                                float bound, float& abest, int& best, Counts& n) {
-  n.box += TRI_SUPER;
+                                                float bound, float& abest, int& best,
+                                                const Group& g, Counts& n) {
+  if (g.lead()) n.add(BOX, TRI_SUPER);
   for (int j = 0; j < TRI_SUPER; ++j) {
     const int c = c0 + j;
     if (slab_cap(p.acbb, p.Ca, c, o, rd, fminf(abest, bound)))
-      fold_prims<SHAPE>(p.apool, c, o, d, abest, best, n);
+      fold_prims<SHAPE>(p.apool, c, o, d, abest, best, g, n);
   }
 }
 
-// walk large group g (chunks cstart.., supers sstart.., schedule segment at
-// ssched) in world distance and merge its winner into w
+// walk large group gi (chunks cstart.., supers sstart.., schedule segment
+// at ssched) in world distance and merge its winner into w
 template <int SHAPE>
-__device__ void ana_group(const Params& p, int g, int cstart, int nchunks, int sstart, int ssched,
-                          bool scheduled, const int* ord_row, const float* ent_row, V3 o, V3 d,
-                          V3 rd, Win& w, Counts& n) {
-  const float bound = root_bound(p.agr, p.A, g, o, rd);
+__device__ void ana_group(const Params& p, int gi, int cstart, int nchunks, int sstart,
+                          int ssched, bool scheduled, const int* ord_row, const float* ent_row,
+                          V3 o, V3 d, V3 rd, Win& w, const Group& g, Counts& n) {
+  const float bound = root_bound(p.agr, p.A, gi, o, rd);
   float abest = w.bd;
   int best = -1;  // winning prim: chunk * 128 + column
   const int nsup = nchunks / TRI_SUPER;
@@ -307,13 +409,14 @@ __device__ void ana_group(const Params& p, int g, int cstart, int nchunks, int s
     for (int k = 0; k < nsup; ++k) {
       if (!(__ldg(ent_row + ssched + k) < fminf(abest, bound))) break;
       const int s = __ldg(ord_row + ssched + k);
-      visit_ana_super<SHAPE>(p, cstart + s * TRI_SUPER, o, d, rd, bound, abest, best, n);
+      visit_ana_super<SHAPE>(p, cstart + s * TRI_SUPER, o, d, rd, bound, abest, best, g, n);
     }
   } else {
-    n.box += nsup;
+    if (g.lead()) n.add(BOX, nsup);
     for (int s = 0; s < nsup; ++s) {
       if (slab_cap(p.asbb, p.Sa, sstart + s, o, rd, fminf(abest, bound)))
-        visit_ana_super<SHAPE>(p, cstart + s * TRI_SUPER, o, d, rd, bound, abest, best, n);
+        visit_ana_super<SHAPE>(p, cstart + s * TRI_SUPER, o, d, rd, bound, abest, best, g,
+                                  n);
     }
   }
   if (best < 0) return;
@@ -349,50 +452,52 @@ __device__ void ana_group(const Params& p, int g, int cstart, int nchunks, int s
 // the closest-hit search of one trace, and the kernel
 // ---------------------------------------------------------------------------
 
-// The first call of a launch is the scheduled outer trace; every later one
-// (the refraction re-trace, later bounces of whole-path mode) walks
-// without the schedule.
+// The first call of a launch for a ray is the scheduled outer trace; every
+// later one (the refraction re-trace, later bounces of whole-path mode)
+// walks without the schedule. Every lane of the ray's group calls it with
+// the same ray and gets the same winner.
 template <bool FLAT, bool CULL>
 struct FusedTrace {
   const Params& p;
   const int* ord_row;
   const float* ent_row;
   bool scheduled;
-  Counts n;
+  const Group& g;
+  Counts& n;
 
   __device__ void operator()(V3 o, V3 d, V3 n_prev, V3 p_prev, Win& w) {
-    ++n.trace;
+    if (g.lead()) n.add(TRACE, 1);
     trace_fold<CULL>(p.small, ord_row + p.sched_base, o, d, n_prev, p_prev, w);
     for (int mi = 0; mi < p.n_mesh; ++mi)
-      mesh_instance<FLAT>(p, mi, scheduled, ord_row, ent_row, o, d, w, n);
+      mesh_instance<FLAT>(p, mi, scheduled, ord_row, ent_row, o, d, w, g, n);
     if (p.A > 0) {
       const V3 rd = {safe_rcp(d.x), safe_rcp(d.y), safe_rcp(d.z)};
       int ssched = p.mesh_stot;
-      for (int g = 0; g < p.A; ++g) {
-        const int code = __ldg(p.ana + 4 * g);
-        const int cstart = __ldg(p.ana + 4 * g + 1);
-        const int nchunks = __ldg(p.ana + 4 * g + 2);
-        const int sstart = __ldg(p.ana + 4 * g + 3);
+      for (int gi = 0; gi < p.A; ++gi) {
+        const int code = __ldg(p.ana + 4 * gi);
+        const int cstart = __ldg(p.ana + 4 * gi + 1);
+        const int nchunks = __ldg(p.ana + 4 * gi + 2);
+        const int sstart = __ldg(p.ana + 4 * gi + 3);
         switch (code) {  // uniform: every thread reads the same descriptor
           case SPHERE:
-            ana_group<SPHERE>(p, g, cstart, nchunks, sstart, ssched, scheduled, ord_row, ent_row,
-                              o, d, rd, w, n);
+            ana_group<SPHERE>(p, gi, cstart, nchunks, sstart, ssched, scheduled, ord_row,
+                                 ent_row, o, d, rd, w, g, n);
             break;
           case CUBE:
-            ana_group<CUBE>(p, g, cstart, nchunks, sstart, ssched, scheduled, ord_row, ent_row, o,
-                            d, rd, w, n);
+            ana_group<CUBE>(p, gi, cstart, nchunks, sstart, ssched, scheduled, ord_row,
+                               ent_row, o, d, rd, w, g, n);
             break;
           case CYLINDER:
-            ana_group<CYLINDER>(p, g, cstart, nchunks, sstart, ssched, scheduled, ord_row,
-                                ent_row, o, d, rd, w, n);
+            ana_group<CYLINDER>(p, gi, cstart, nchunks, sstart, ssched, scheduled, ord_row,
+                                   ent_row, o, d, rd, w, g, n);
             break;
           case CONE:
-            ana_group<CONE>(p, g, cstart, nchunks, sstart, ssched, scheduled, ord_row, ent_row, o,
-                            d, rd, w, n);
+            ana_group<CONE>(p, gi, cstart, nchunks, sstart, ssched, scheduled, ord_row,
+                               ent_row, o, d, rd, w, g, n);
             break;
           default:
-            ana_group<QUAD>(p, g, cstart, nchunks, sstart, ssched, scheduled, ord_row, ent_row, o,
-                            d, rd, w, n);
+            ana_group<QUAD>(p, gi, cstart, nchunks, sstart, ssched, scheduled, ord_row,
+                               ent_row, o, d, rd, w, g, n);
             break;
         }
         ssched += nchunks / TRI_SUPER;
@@ -402,54 +507,80 @@ struct FusedTrace {
   }
 };
 
+// One launch over rays [0, n_scan) of the wavefront, one per group of
+// lanes: ray r goes to group r mod (the grid's groups), which takes every
+// so-many-th ray; finished rays are skipped. The lanes per ray are p.lanes
+// or, with 0, chosen here from the rays to scan (the wrapper computes
+// n_scan with no host sync): LANES_MANY in whole-path mode and for a
+// wavefront with MANY_RAYS rays or more to scan, LANES_FEW below
+// (models/bounce_kernel.py::k2_shape is the same rule).
 template <bool TRANSPARENT, bool FLAT, bool CULL>
 __global__ void __launch_bounds__(BLOCK) fused_kernel(Params p) {
-  const int ray = blockIdx.x * BLOCK + threadIdx.x;
-  if (ray >= p.M) return;
   const int M = p.M;
-  float* f = p.stf + ray;
-  int* u = p.sti + ray;
-  Path s;
-  s.o = {f[0], f[M], f[2 * M]};
-  s.d = {f[3 * M], f[4 * M], f[5 * M]};
-  s.att = {f[6 * M], f[7 * M], f[8 * M]};
-  s.total = {f[9 * M], f[10 * M], f[11 * M]};
-  s.result = {f[12 * M], f[13 * M], f[14 * M]};
-  s.done = u[0] != 0;
-  s.st = {static_cast<uint32_t>(u[M]), static_cast<uint32_t>(u[2 * M]),
-          static_cast<uint32_t>(u[3 * M])};
-  if (s.done) return;  // a finished ray changes nothing
-  const int row = (ray / TILE) * p.Stot;
-  FusedTrace<FLAT, CULL> trace{p, p.ord + row, p.ent + row, true, {}};
-  const int nb = p.whole_path > 0 ? p.whole_path : 1;
-  for (int bounce = 0; bounce < nb && !s.done; ++bounce)
-    bounce_step<TRANSPARENT>(trace, p.ior, s);
-  const float out[15] = {s.o.x,     s.o.y,     s.o.z,     s.d.x,     s.d.y,
-                         s.d.z,     s.att.x,   s.att.y,   s.att.z,   s.total.x,
-                         s.total.y, s.total.z, s.result.x, s.result.y, s.result.z};
+  const int n_scan = min(__ldg(p.n_scan), M);
+  int lanes = p.lanes;
+  if (lanes == 0) lanes = (p.whole_path > 0 || n_scan >= MANY_RAYS) ? LANES_MANY : LANES_FEW;
+  const Group g(lanes);
+  const int stride = gridDim.x * (BLOCK / lanes);
+  Counts n;
+  for (int ray = (blockIdx.x * BLOCK + threadIdx.x) / lanes; ray < n_scan; ray += stride) {
+    float* f = p.stf + ray;
+    int* u = p.sti + ray;
+    if (u[0] != 0) continue;  // a finished ray changes nothing
+    Path s;
+    s.o = {f[0], f[M], f[2 * M]};
+    s.d = {f[3 * M], f[4 * M], f[5 * M]};
+    s.att = {f[6 * M], f[7 * M], f[8 * M]};
+    s.total = {f[9 * M], f[10 * M], f[11 * M]};
+    s.result = {f[12 * M], f[13 * M], f[14 * M]};
+    s.done = false;
+    s.st = {static_cast<uint32_t>(u[M]), static_cast<uint32_t>(u[2 * M]),
+            static_cast<uint32_t>(u[3 * M])};
+    const int row = (ray / TILE) * p.Stot;
+    FusedTrace<FLAT, CULL> trace{p, p.ord + row, p.ent + row, true, g, n};
+    const int nb = p.whole_path > 0 ? p.whole_path : 1;
+    for (int bounce = 0; bounce < nb && !s.done; ++bounce)
+      bounce_step<TRANSPARENT>(trace, p.ior, s);
+    __syncwarp(g.mask);  // every lane of the group has read the state
+    if (g.lead()) {
+      const float out[15] = {s.o.x,     s.o.y,     s.o.z,     s.d.x,      s.d.y,
+                             s.d.z,     s.att.x,   s.att.y,   s.att.z,    s.total.x,
+                             s.total.y, s.total.z, s.result.x, s.result.y, s.result.z};
 #pragma unroll
-  for (int k = 0; k < 15; ++k) f[k * M] = out[k];
-  u[0] = s.done ? 1 : 0;
-  u[M] = static_cast<int>(s.st.s0);
-  u[2 * M] = static_cast<int>(s.st.s1);
-  u[3 * M] = static_cast<int>(s.st.s2);
-  if (p.counts) {  // one atomic per warp and counter
-    const unsigned mask = __activemask();
-    const uint32_t c[5] = {trace.n.tri, trace.n.box, trace.n.prim, trace.n.trace,
-                           trace.n.slots};
-    const bool leader = (threadIdx.x % 32) == (__ffs(mask) - 1);
-#pragma unroll
-    for (int k = 0; k < 5; ++k) {
-      const uint32_t sum = __reduce_add_sync(mask, c[k]);
-      if (leader) atomicAdd(p.counts + k, static_cast<unsigned long long>(sum));
+      for (int k = 0; k < 15; ++k) f[k * M] = out[k];
+      u[0] = s.done ? 1 : 0;
+      u[M] = static_cast<int>(s.st.s0);
+      u[2 * M] = static_cast<int>(s.st.s1);
+      u[3 * M] = static_cast<int>(s.st.s2);
     }
   }
+#ifdef K2_COUNTS
+  // one atomic per warp and counter
+  const unsigned mask = __activemask();
+  const bool leader = (threadIdx.x % 32) == (__ffs(mask) - 1);
+#pragma unroll
+  for (int k = 0; k < N_COUNTS; ++k) {
+    const uint32_t sum = __reduce_add_sync(mask, n.v[k]);
+    if (leader) atomicAdd(p.counts + k, static_cast<unsigned long long>(sum));
+  }
+#endif
 }
 
+// a grid of the blocks the card keeps resident (no more than the rays need
+// with LANES_FEW lanes each): the groups stride over the rays
 template <bool TRANSPARENT, bool FLAT, bool CULL>
 void launch(const Params& p, cudaStream_t stream) {
-  const int grid = (p.M + BLOCK - 1) / BLOCK;
-  fused_kernel<TRANSPARENT, FLAT, CULL><<<grid, BLOCK, 0, stream>>>(p);
+  auto kernel = fused_kernel<TRANSPARENT, FLAT, CULL>;
+  static int resident = 0;  // the same for every launch of this variant
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int need = (p.M * LANES_FEW + BLOCK - 1) / BLOCK;
+  kernel<<<need < resident ? need : resident, BLOCK, 0, stream>>>(p);
 }
 
 template <bool TRANSPARENT, bool FLAT>
@@ -469,7 +600,15 @@ extern "C" int fused_call(void* stf, void* sti, int M, float ior, const void* ta
                           int Sa, const void* apool, const void* agr, const void* ana, int A,
                           const void* ord, const void* ent, int Stot, int mesh_stot,
                           int sched_base, int whole_path, int has_transparent, int flat_face,
-                          int cull_small, void* counts, void* stream) {
+                          int cull_small, const void* n_scan, int lanes, void* counts,
+                          void* stream) {
+  if (M <= 0 || M % TILE != 0 || (lanes != 0 && lanes != LANES_MANY && lanes != LANES_FEW))
+    return static_cast<int>(cudaErrorInvalidValue);
+#ifdef K2_COUNTS
+  if (!counts) return static_cast<int>(cudaErrorInvalidValue);
+#else
+  if (counts) return static_cast<int>(cudaErrorInvalidValue);  // a K2_COUNTS build counts
+#endif
   Params p;
   p.stf = static_cast<float*>(stf);
   p.sti = static_cast<int*>(sti);
@@ -491,6 +630,7 @@ extern "C" int fused_call(void* stf, void* sti, int M, float ior, const void* ta
   p.ana = static_cast<const int*>(ana);
   p.ord = static_cast<const int*>(ord);
   p.ent = static_cast<const float*>(ent);
+  p.n_scan = static_cast<const int*>(n_scan);
   p.counts = static_cast<unsigned long long*>(counts);
   p.ior = ior;
   p.M = M;
@@ -504,6 +644,7 @@ extern "C" int fused_call(void* stf, void* sti, int M, float ior, const void* ta
   p.mesh_stot = mesh_stot;
   p.sched_base = sched_base;
   p.whole_path = whole_path;
+  p.lanes = lanes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (has_transparent) {
     if (flat_face)
@@ -517,6 +658,14 @@ extern "C" int fused_call(void* stf, void* sti, int M, float ior, const void* ta
       launch_cull<false, false>(p, cull_small, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// the shape rule of this build: LANES_MANY, LANES_FEW, MANY_RAYS
+extern "C" void fused_shape_rule(int* out) {
+  out[0] = LANES_MANY;
+  out[1] = LANES_FEW;
+  out[2] = MANY_RAYS;
 }
 
 extern "C" const char* fused_error_string(int err) {

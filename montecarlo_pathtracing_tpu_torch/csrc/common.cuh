@@ -563,19 +563,8 @@ __device__ __forceinline__ void bounce_step(Trace& trace, float ior, Path& s) {
   V3 rray = unit_z;
   if (choose_refl) rray = random_ray(s.st, reflect(d, N), 1.0f - shin * rough, true);
 
-  V3 N2 = N, P2 = P, d_exit = unit_z;
-  if (TRANSPARENT && refr_lane) {
-    // refraction march-through (:146-153); mixed keeps un-refracted D
-    V3 d_in = refr_case ? refract_glsl(d, N, ior) : d;
-    V3 o_in = {P.x - BIAS * N.x, P.y - BIAS * N.y, P.z - BIAS * N.z};
-    Win w2;
-    trace(o_in, d_in, N, P, w2);
-    N2 = w2.n;
-    P2 = w2.p;
-    d_exit = refract_glsl(d_in, neg(N2), 1.0f / ior);
-  }
-
-  // attenuation updates (:142,147,161,170)
+  // attenuation updates (:142,147,161,170); the re-trace below does not
+  // change them, so they are done first and fewer values stay live across it
   V3 base = {col.x * att.x, col.y * att.y, col.z * att.z};
   V3 sm = {(1.0f - shin) * att.x + shin * col.x, (1.0f - shin) * att.y + shin * col.y,
            (1.0f - shin) * att.z + shin * col.z};
@@ -588,13 +577,24 @@ __device__ __forceinline__ void bounce_step(Trace& trace, float ior, Path& s) {
     ks = spec;
   s.att = {base.x + (att.x * ks) * sm.x, base.y + (att.y * ks) * sm.y,
            base.z + (att.z * ks) * sm.z};
-  if (refr_lane) {
-    s.o = {P2.x + BIAS * N2.x, P2.y + BIAS * N2.y, P2.z + BIAS * N2.z};
-    s.d = d_exit;
-  } else {
+  if (!refr_lane) {
     s.o = {P.x + BIAS * N.x, P.y + BIAS * N.y, P.z + BIAS * N.z};
     s.d = choose_refl ? rray : ray_d;
+    return;
   }
+  V3 N2 = N, P2 = P, d_exit = unit_z;
+  if (TRANSPARENT) {
+    // refraction march-through (:146-153); mixed keeps un-refracted D
+    V3 d_in = refr_case ? refract_glsl(d, N, ior) : d;
+    V3 o_in = {P.x - BIAS * N.x, P.y - BIAS * N.y, P.z - BIAS * N.z};
+    Win w2;
+    trace(o_in, d_in, N, P, w2);
+    N2 = w2.n;
+    P2 = w2.p;
+    d_exit = refract_glsl(d_in, neg(N2), 1.0f / ior);
+  }
+  s.o = {P2.x + BIAS * N2.x, P2.y + BIAS * N2.y, P2.z + BIAS * N2.z};
+  s.d = d_exit;
 }
 
 }  // namespace pt

@@ -30,8 +30,9 @@
 // group's table columns with __ldg: every thread of a warp reads the same
 // column, so each load is one broadcast. K4a and K6 stage each chunk's
 // [9, 128] corner rows (4.6 KB) in shared memory, one column per thread,
-// and every thread then tests all 128 triangles from there. K5 stages a
-// block's [25, 8] table (inverse rows, forward rows, ok flag). Folds run in
+// and every thread then tests all 128 triangles from there. K5 reads an
+// 8-prim block's [25, 8] table (inverse rows, forward rows, ok flag) as
+// warp-wide broadcasts (see "The walks"). Folds run in
 // ascending prim or triangle order with a strict `<`: the TPU kernels'
 // first minimum inside a chunk followed by a strictly-closer merge across
 // chunks (pallas_trace.py:204-224) is exactly that scan, so the winners,
@@ -59,21 +60,33 @@
 // read with __ldg, the same column by every thread: uniform broadcasts
 // from L1 (1,172 K3b boxes are 28 KB).
 //
-// The walks (K5, K6). A block walks its tile's ranked list (order[t],
-// tlo[t], ascending entry bound) front to back in one launch. Before each
-// block or chunk it asks with __syncthreads_or whether any of its rays still
-// has tlo < min(best, bound), the prune of sparse_trace.py:401-403, and ends
-// the walk at the first that none has. The TPU took the prune over the whole
-// tile; here it is taken over the block's own rays (a quarter tile in K5),
-// and that is sound over any subset of a tile's rays, down to one: tlo
-// lower-bounds every ray of the tile's entry into the box (the bundle holds
-// them all), and bound caps every hit inside the root box, so a block
-// skipped for ray r holds no hit strictly closer than r's best. The list is
-// sorted and best only shrinks, so nothing later passes either. Winners
-// equal the brute fold's; on an exact distance tie between two blocks the
-// ranked order decides, as it does on the TPU. The TPU's repeated calls
-// over a budgeted worklist, carrying the best in and out (ain/rin), are not
-// needed: the whole list is walked in one launch.
+// The walks (K5, K6). A K6 block walks its tile's ranked list (order[t],
+// tlo[t], ascending entry bound) front to back in one launch; before each
+// chunk it asks with __syncthreads_or whether any of its rays still has
+// tlo < min(best, bound), the prune of sparse_trace.py:401-403, and ends the
+// walk at the first that none has. In K5 each warp walks its tile's list on
+// its own, with no block barrier: it takes the prune over its own 32 rays
+// (__any_sync), then tests the block's box (sup_bb) per ray within min(best,
+// bound), K3b's slab test, and skips the block when none of its rays enters
+// it (a lane that does not enter idles while the others test). The TPU took
+// the prune over the whole 1024-ray tile, and both the prune and the gate
+// are sound over any subset of a tile's rays, down to one: tlo lower-bounds
+// every ray of the tile's entry into the box (the bundle holds them all), a
+// hit inside a box lies no nearer than the ray's entry into it, and bound
+// caps every hit inside the root box, so a block skipped for ray r holds no
+// hit strictly closer than r's best. The list is sorted and best only
+// shrinks, so nothing later passes the prune either. Winners equal the brute
+// fold's; on an exact distance tie between two blocks the ranked order
+// decides, as it does on the TPU. K5's plain version keeps the tile-wide
+// prune alone. K5 reads each prim's 25 rows with __ldg, the same address for
+// the warp's 32 lanes: one broadcast from L1 each, issued together for the
+// block's 8 prims, so no step waits on a staging barrier. Staging each
+// block's table per warp in shared memory, with the next ranked block's
+// loads in flight, measured slower on an H100 (PERF.md), so the table is
+// read as broadcasts. "Blocks visited" (counter [1]) counts, per
+// warp, the blocks it entered. The TPU's repeated calls over a budgeted
+// worklist, carrying the best in and out (ain/rin), are not needed: the
+// whole list is walked in one launch.
 //
 // What bounds them on this card: FP32 operations. A ray-prim test is 47-86
 // FP32 operations (the local frame 42, the shape test 5-44), and 33 more for
@@ -87,8 +100,9 @@
 // its few rays that still need them.
 //
 // Work counters, when `counts` is set: [0] ray-prim or ray-triangle tests
-// done, [1] 128-prim chunks (K3a), chunks (K4a, K6) or 8-prim blocks (K5)
-// that blocks visited, or chunks that warps (K3b) or blocks (K4b) entered,
+// done, [1] 128-prim chunks (K3a) or chunks (K4a, K6) that blocks visited,
+// 8-prim blocks that warps entered (K5), or chunks that warps (K3b) or
+// blocks (K4b) entered,
 // [2] tests that hit (the shape test passed, or the triangle was hit); K3b
 // and K4b add [3] ray-box tests and K4b [4] supers that blocks entered.
 //
@@ -344,21 +358,49 @@ __global__ void __launch_bounds__(CHUNK)
 }
 
 // ---------------------------------------------------------------------------
-// K5: a quarter of a 1024-ray tile walks its tile's ranked 8-prim blocks
+// K5: each warp walks its 1024-ray tile's ranked 8-prim blocks on its own
 // ---------------------------------------------------------------------------
+
+// the ray's test of prim j of a block whose [25, 8] table is at t (device
+// memory read as warp-wide broadcasts), folded into (bd, brow, ba, bdir)
+// under the strictly-closer rule
+template <int SHAPE>
+__device__ __forceinline__ void an_prim(const float* t, int b, int j, V3 ro, V3 rd, float& bd,
+                                        int& brow, float& ba, int& bdir, uint32_t& tests,
+                                        uint32_t& hits) {
+  if (!(__ldg(t + 24 * SUPB + j) > 0.0f)) return;  // the ok flag gates the take
+  ++tests;
+  float iv[12], tf[12];
+#pragma unroll
+  for (int r = 0; r < 12; ++r) iv[r] = __ldg(t + r * SUPB + j);
+#pragma unroll
+  for (int r = 0; r < 12; ++r) tf[r] = __ldg(t + (12 + r) * SUPB + j);
+  float dist, a;
+  int code;
+  if (!prim_hit<SHAPE>(iv, tf, ro, rd, dist, a, code)) return;
+  ++hits;
+  if (dist < bd) {
+    bd = dist;
+    brow = b * SUPB + j;
+    ba = a;
+    bdir = code;
+  }
+}
 
 template <int SHAPE>
 __global__ void __launch_bounds__(AN_BLOCK)
     an_walk(const float* __restrict__ o, const float* __restrict__ d, int M,
-            const float* __restrict__ tab, const int* __restrict__ order,
-            const float* __restrict__ tlo, int S, const float* __restrict__ bound,
-            float* dist_out, int* row_out, float* a_out, int* dir_out,
-            unsigned long long* counts) {
-  __shared__ float s[TAB_ROWS * SUPB];
+            const float* __restrict__ tab, const float* __restrict__ sbb, int nblk,
+            const int* __restrict__ order, const float* __restrict__ tlo, int S,
+            const float* __restrict__ bound, float* dist_out, int* row_out, float* a_out,
+            int* dir_out, unsigned long long* counts) {
+  constexpr int TAB = TAB_ROWS * SUPB;  // 200 floats per block
   const int tile = blockIdx.x / (AN_TILE / AN_BLOCK);
   const int ray = blockIdx.x * AN_BLOCK + threadIdx.x;
+  const int lane = threadIdx.x % 32;
   const V3 ro = ray_at(o, M, ray);
   const V3 rd = ray_at(d, M, ray);
+  const V3 rcp = {safe_rcp(rd.x), safe_rcp(rd.y), safe_rcp(rd.z)};
   const float bnd = bound[ray];
   const int* ord = order + static_cast<size_t>(tile) * S;
   const float* ent = tlo + static_cast<size_t>(tile) * S;
@@ -368,37 +410,29 @@ __global__ void __launch_bounds__(AN_BLOCK)
   for (int k = 0; k < S; ++k) {
     const float e = __ldg(ent + k);  // the same for every thread
     if (!(e < INF)) break;           // unreachable blocks sort last
-    if (!__syncthreads_or(e < fminf(bd, bnd))) break;  // the occlusion prune
+    const float cap = fminf(bd, bnd);
+    // the occlusion prune over the warp's 32 rays
+    if (!__any_sync(FULL, e < cap)) break;
     const int b = __ldg(ord + k);
-    if (threadIdx.x < TAB_ROWS * SUPB)
-      s[threadIdx.x] = __ldg(tab + static_cast<size_t>(b) * TAB_ROWS * SUPB + threadIdx.x);
-    __syncthreads();
+    // the block's box, per ray, within min(best, bound); the warp skips
+    // the block when none of its rays enters it
+    const bool enter = slab_cap(sbb, nblk, b, ro, rcp, cap);
+    if (!__any_sync(FULL, enter)) continue;
     ++visits;
-    for (int j = 0; j < SUPB; ++j) {
-      if (!(s[24 * SUPB + j] > 0.0f)) continue;  // the ok flag gates the take
-      ++tests;
-      float iv[12], tf[12];
+    if (!enter) continue;
+    const float* t = tab + static_cast<size_t>(b) * TAB;
 #pragma unroll
-      for (int r = 0; r < 12; ++r) iv[r] = s[r * SUPB + j];
-#pragma unroll
-      for (int r = 0; r < 12; ++r) tf[r] = s[(12 + r) * SUPB + j];
-      float dist, a;
-      int code;
-      if (!prim_hit<SHAPE>(iv, tf, ro, rd, dist, a, code)) continue;
-      ++hits;
-      if (dist < bd) {
-        bd = dist;
-        brow = b * SUPB + j;
-        ba = a;
-        bdir = code;
-      }
-    }
+    for (int j = 0; j < SUPB; ++j)
+      an_prim<SHAPE>(t, b, j, ro, rd, bd, brow, ba, bdir, tests, hits);
   }
   dist_out[ray] = bd;
   row_out[ray] = brow;
   a_out[ray] = ba;
   dir_out[ray] = bdir;
-  add_counts(counts, tests, visits, hits);
+  if (!counts) return;
+  add_warp_sum(counts, tests);
+  add_warp_sum(counts + 2, hits);
+  if (lane == 0) atomicAdd(counts + 1, static_cast<unsigned long long>(visits));
 }
 
 // ---------------------------------------------------------------------------
@@ -488,11 +522,12 @@ struct GroupCulledLaunch {
 
 template <int SHAPE>
 struct AnLaunch {
-  static void run(const float* o, const float* d, int M, const float* tab, const int* order,
-                  const float* tlo, int S, const float* bound, float* dist, int* row, float* a,
-                  int* dir, unsigned long long* counts, cudaStream_t stream) {
-    an_walk<SHAPE><<<M / AN_BLOCK, AN_BLOCK, 0, stream>>>(o, d, M, tab, order, tlo, S, bound, dist,
-                                                          row, a, dir, counts);
+  static void run(const float* o, const float* d, int M, const float* tab, const float* sbb,
+                  int nblk, const int* order, const float* tlo, int S, const float* bound,
+                  float* dist, int* row, float* a, int* dir, unsigned long long* counts,
+                  cudaStream_t stream) {
+    an_walk<SHAPE><<<M / AN_BLOCK, AN_BLOCK, 0, stream>>>(o, d, M, tab, sbb, nblk, order, tlo, S,
+                                                          bound, dist, row, a, dir, counts);
   }
 };
 
@@ -557,15 +592,17 @@ extern "C" int mesh_best_culled(const void* o, const void* d, int M, const void*
 }
 
 // K5. o, d: [3, M] f32 (M a multiple of 1024); tab: [nblk, 25, 8] f32;
-// order: [M/1024, S] i32 block ids; tlo: [M/1024, S] f32 ascending per row;
-// bound: [M] f32; outputs [M].
-extern "C" int an_fold(const void* o, const void* d, int M, const void* tab, int nblk,
-                       const void* order, const void* tlo, int S, const void* bound, int shape,
-                       void* dist, void* row, void* a, void* dir, void* counts, void* stream) {
+// sbb: [6, nblk] f32 block boxes; order: [M/1024, S] i32 block ids; tlo:
+// [M/1024, S] f32 ascending per row; bound: [M] f32; outputs [M].
+extern "C" int an_fold(const void* o, const void* d, int M, const void* tab, const void* sbb,
+                       int nblk, const void* order, const void* tlo, int S, const void* bound,
+                       int shape, void* dist, void* row, void* a, void* dir, void* counts,
+                       void* stream) {
   if (bad_rays(M, AN_TILE) || nblk <= 0 || S <= 0) return cudaErrorInvalidValue;
   return by_shape<AnLaunch>(
       shape, static_cast<const float*>(o), static_cast<const float*>(d), M,
-      static_cast<const float*>(tab), static_cast<const int*>(order),
+      static_cast<const float*>(tab), static_cast<const float*>(sbb), nblk,
+      static_cast<const int*>(order),
       static_cast<const float*>(tlo), S, static_cast<const float*>(bound),
       static_cast<float*>(dist), static_cast<int*>(row), static_cast<float*>(a),
       static_cast<int*>(dir), static_cast<unsigned long long*>(counts),

@@ -33,6 +33,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # relative against the plain versions on an H100, past the reference's own
 # 5e-4 between its folds. chip_smoke.py times both builds in one call.
 EXTRA_FLAGS = {"trace_kernels": ("-fmad=false",)}
+# K2's counting build: the same kernel with its work counters compiled in
+# (held in registers, they slow it even when nothing is counted)
+K2_COUNTS = ("-DK2_COUNTS",)
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -60,35 +63,40 @@ def sources(name: str) -> list:
     return out
 
 
-def _flags(name: str) -> tuple:
-    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+def _flags(name: str, extra=()) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ()) + tuple(extra)
 
 
-def library_path(name: str) -> str:
+def library_path(name: str, extra=()) -> str:
     """Where the build of csrc/<name>.cu with its current sources and
-    flags lives."""
+    flags (and the `extra` flags of a variant build) lives."""
     h = hashlib.sha256()
     for path in sources(name):
         with open(path, "rb") as f:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
-    h.update(" ".join(_flags(name)).encode())
+    h.update(" ".join(_flags(name, extra)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
-def build_all(names) -> dict:
-    """Compile every csrc/<name>.cu whose hash is new, one nvcc process per
-    source, all started together. Returns {name: library path}. The
+def build_all(names, variants=()) -> dict:
+    """Compile every csrc/<name>.cu whose hash is new, and every variant
+    build (name, extra flags), one nvcc process per build, all started
+    together. Returns {name or (name, extra): library path}. The
     compiler's report (registers, spills) is kept beside each library as
     <library>.log."""
-    paths = {name: library_path(name) for name in names}
+    builds = [(name, ()) for name in names] + [
+        (name, tuple(extra)) for name, extra in variants]
+    paths = {(name if not extra else (name, extra)): library_path(name, extra)
+             for name, extra in builds}
     jobs = []
-    for name, out in paths.items():
-        if os.path.exists(out):
+    for name, extra in builds:
+        out = library_path(name, extra)
+        if os.path.exists(out) or any(j[1] == out for j in jobs):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
         src = os.path.join(CSRC, name + ".cu")
-        proc = subprocess.Popen([nvcc(), *_flags(name), "-o", tmp, src],
+        proc = subprocess.Popen([nvcc(), *_flags(name, extra), "-o", tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((src, out, tmp, proc, time.perf_counter()))
@@ -106,85 +114,100 @@ def build_all(names) -> dict:
     return paths
 
 
-def build(name: str) -> str:
-    """build_all of one source: the path of its shared library."""
-    return build_all([name])[name]
+def build(name: str, extra=()) -> str:
+    """build_all of one source (or variant): its shared library's path."""
+    return build_all([], [(name, extra)])[
+        (name, tuple(extra)) if extra else name]
 
 
-def build_log(name: str) -> str:
+def build_log(name: str, extra=()) -> str:
     """The compiler's report of the last build of csrc/<name>.cu."""
-    with open(build(name) + ".log") as f:
+    with open(build(name, extra) + ".log") as f:
         return f.read()
+
+
+def _load(name: str, extra, bind) -> ctypes.CDLL:
+    """csrc/<name>.cu (with a variant's extra flags), built, loaded and
+    given its argument types by bind(lib) once per process."""
+    key = (name, tuple(extra)) if extra else name
+    lib = _loaded.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(build(name, extra))
+        bind(lib)
+        _loaded[key] = lib
+    return lib
+
+
+def _bind_megakernel(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.mega_pass.argtypes = [p, p, p, ctypes.c_uint32, p, i, p, i, p,
+                              p, i, i, i, i, i, p, p]
+    lib.mega_pass.restype = ctypes.c_int
+    lib.mega_error_string.argtypes = [ctypes.c_int]
+    lib.mega_error_string.restype = ctypes.c_char_p
 
 
 def megakernel_lib() -> ctypes.CDLL:
     """K1 (csrc/megakernel.cu), built and loaded once per process."""
-    lib = _loaded.get("megakernel")
-    if lib is None:
-        lib = ctypes.CDLL(build("megakernel"))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mega_pass.argtypes = [p, p, p, ctypes.c_uint32, p, i, p, i, p,
-                                  p, i, i, i, i, i, p, p]
-        lib.mega_pass.restype = ctypes.c_int
-        lib.mega_error_string.argtypes = [ctypes.c_int]
-        lib.mega_error_string.restype = ctypes.c_char_p
-        _loaded["megakernel"] = lib
-    return lib
+    return _load("megakernel", (), _bind_megakernel)
 
 
-def bounce_kernel_lib() -> ctypes.CDLL:
-    """K2 (csrc/bounce_kernel.cu), built and loaded once per process."""
-    lib = _loaded.get("bounce_kernel")
-    if lib is None:
-        lib = ctypes.CDLL(build("bounce_kernel"))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_call.argtypes = [
-            p, p, i, ctypes.c_float,            # stf, sti, M, ior
-            p, i, p, i, p, i,                   # tab P, gsbb Sg, groups G
-            p, p, i,                            # msc, msi, n_mesh
-            p, i, p, i, p,                      # cbb Cm, sbb Sm, tpool
-            p, i, p, i, p,                      # acbb Ca, asbb Sa, apool
-            p, p, i,                            # agr, ana, A
-            p, p, i, i, i,                      # ord, ent, Stot, mesh_stot,
-                                                # sched_base
-            i, i, i, i,                         # whole_path, transparent,
-                                                # flat_face, cull_small
-            p, p]                               # counts, stream
-        lib.fused_call.restype = ctypes.c_int
-        lib.fused_error_string.argtypes = [ctypes.c_int]
-        lib.fused_error_string.restype = ctypes.c_char_p
-        _loaded["bounce_kernel"] = lib
-    return lib
+def _bind_bounce_kernel(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_call.argtypes = [
+        p, p, i, ctypes.c_float,            # stf, sti, M, ior
+        p, i, p, i, p, i,                   # tab P, gsbb Sg, groups G
+        p, p, i,                            # msc, msi, n_mesh
+        p, i, p, i, p,                      # cbb Cm, sbb Sm, tpool
+        p, i, p, i, p,                      # acbb Ca, asbb Sa, apool
+        p, p, i,                            # agr, ana, A
+        p, p, i, i, i,                      # ord, ent, Stot, mesh_stot,
+                                            # sched_base
+        i, i, i, i,                         # whole_path, transparent,
+                                            # flat_face, cull_small
+        p, i,                               # n_scan, lanes per ray
+        p, p]                               # counts, stream
+    lib.fused_call.restype = ctypes.c_int
+    lib.fused_shape_rule.argtypes = [p]
+    lib.fused_shape_rule.restype = None
+    lib.fused_error_string.argtypes = [ctypes.c_int]
+    lib.fused_error_string.restype = ctypes.c_char_p
+
+
+def bounce_kernel_lib(counts: bool = False) -> ctypes.CDLL:
+    """K2 (csrc/bounce_kernel.cu), built and loaded once per process; with
+    `counts`, its counting build (K2_COUNTS)."""
+    return _load("bounce_kernel", K2_COUNTS if counts else (),
+                 _bind_bounce_kernel)
+
+
+def _bind_trace_kernels(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    # o, d, M, inv, trf, pid, ppad, shape, dist, row, a, dir, counts,
+    # stream
+    lib.group_best.argtypes = [p, p, i, p, p, p, i, i, p, p, p, p, p, p]
+    # o, d, M, inv, trf, pid, ppad, cbb, shape, dist, row, a, dir,
+    # counts, stream
+    lib.group_best_culled.argtypes = [p, p, i, p, p, p, i, p, i, p, p, p,
+                                      p, p, p]
+    # o, d, M, tri, ppad, a, row, counts, stream
+    lib.mesh_best.argtypes = [p, p, i, p, i, p, p, p, p]
+    # o, d, M, tri, ppad, cbb, sbb, nsuper, a, row, counts, stream
+    lib.mesh_best_culled.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p]
+    # o, d, M, tab, sbb, nblk, order, tlo, S, bound, shape, dist, row,
+    # a, dir, counts, stream
+    lib.an_fold.argtypes = [p, p, i, p, p, i, p, p, i, p, i, p, p, p, p,
+                            p, p]
+    # o, d, M, tri, ppad, order, tlo, S, bound, a, row, counts, stream
+    lib.mesh_fold.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p, p]
+    for fn in (lib.group_best, lib.group_best_culled, lib.mesh_best,
+               lib.mesh_best_culled, lib.an_fold, lib.mesh_fold):
+        fn.restype = ctypes.c_int
+    lib.trace_error_string.argtypes = [ctypes.c_int]
+    lib.trace_error_string.restype = ctypes.c_char_p
 
 
 def trace_kernels_lib() -> ctypes.CDLL:
     """K3a, K3b, K4a, K4b, K5 and K6 (csrc/trace_kernels.cu), built and
     loaded once per process."""
-    lib = _loaded.get("trace_kernels")
-    if lib is None:
-        lib = ctypes.CDLL(build("trace_kernels"))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        # o, d, M, inv, trf, pid, ppad, shape, dist, row, a, dir, counts,
-        # stream
-        lib.group_best.argtypes = [p, p, i, p, p, p, i, i, p, p, p, p, p, p]
-        # o, d, M, inv, trf, pid, ppad, cbb, shape, dist, row, a, dir,
-        # counts, stream
-        lib.group_best_culled.argtypes = [p, p, i, p, p, p, i, p, i, p, p, p,
-                                          p, p, p]
-        # o, d, M, tri, ppad, a, row, counts, stream
-        lib.mesh_best.argtypes = [p, p, i, p, i, p, p, p, p]
-        # o, d, M, tri, ppad, cbb, sbb, nsuper, a, row, counts, stream
-        lib.mesh_best_culled.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p]
-        # o, d, M, tab, nblk, order, tlo, S, bound, shape, dist, row, a,
-        # dir, counts, stream
-        lib.an_fold.argtypes = [p, p, i, p, i, p, p, i, p, i, p, p, p, p, p,
-                                p]
-        # o, d, M, tri, ppad, order, tlo, S, bound, a, row, counts, stream
-        lib.mesh_fold.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p, p]
-        for fn in (lib.group_best, lib.group_best_culled, lib.mesh_best,
-                   lib.mesh_best_culled, lib.an_fold, lib.mesh_fold):
-            fn.restype = ctypes.c_int
-        lib.trace_error_string.argtypes = [ctypes.c_int]
-        lib.trace_error_string.restype = ctypes.c_char_p
-        _loaded["trace_kernels"] = lib
-    return lib
+    return _load("trace_kernels", (), _bind_trace_kernels)

@@ -51,8 +51,10 @@ import torch
 from .. import kernels
 from ..ops import rng as _rng
 from ..ops.intersect import EPSILON
+from ..ops.pallas_trace import _slab_enters
 from ..ops.shapes import SOA_FNS
 from ..ops.sort_rays import PARK_Z, ray_sort_key
+from ..ops.vec import apply_affine, apply_linear, safe_rcp
 from ..ops.worklist import INF, bundle_box_entry, tile_bundles
 from .megakernel import (
     MEGA_CULL_MIN_PRIMS, MEGA_MAX_PRIMS, MEGA_SUPER, _FMAX, _bounce_step,
@@ -65,6 +67,13 @@ LANES = 128        # triangles or prims per chunk
 TRI_SUPER = 16     # chunks per super (scene/device.TRI_SUPER)
 SF = 15            # f32 state rows: o3 d3 attenu3 total3 result3
 SU = 4             # integer state rows: done, rng s0 s1 s2
+# K2's shape rule, a mirror of csrc/bounce_kernel.cu's LANES_MANY,
+# LANES_FEW and MANY_RAYS (the kernel chooses on the device; _lib checks
+# this copy against the build): lanes per ray, SHAPES[0] in whole-path
+# mode and for a wavefront launch with at least MANY_RAYS rays to scan,
+# SHAPES[1] below
+SHAPES = (8, 16)
+MANY_RAYS = 32768
 M32 = 0xFFFFFFFF
 _EPS = float(EPSILON)
 _F32 = torch.float32
@@ -503,11 +512,92 @@ def _from_u32(x, dtype):
     return x.to(dtype)
 
 
-def fused_call_reference(inp: FusedInputs, stf, sti, whole_path: int):
+class K2Need:
+    """The work the inputs of K2 calls need, counted by
+    `fused_call_reference` from each trace's final best, not from any
+    walk (so no design of K2 can come in under it). Per trace, for each
+    ray whose trace is real (a ray in flight; a refracting ray in the
+    re-trace), against its final best world distance `best`:
+      - each mesh instance, in its local frame on the unit ray against
+        best * |d_local| (K2's own gate): a slab test of every super box,
+        a slab test of the real leaf boxes of each super it enters, and
+        the real triangles of each leaf it enters (`tri`);
+      - each large group, in world space against best: the same two
+        levels over its super and chunk boxes, and the real prims of each
+        chunk it enters (`prim`, one count per group);
+      - `box`, the slab tests of both;
+      - one fold of the small table (`traced`), and one hit point and
+        normal where it hits (`hits`);
+    and one bounce step per ray in flight (`steps`). Counts are int64
+    scalars on the state's device. With keep=True, `traces` also keeps
+    each trace's (o, d, lanes, best) rows."""
+
+    def __init__(self, inp: FusedInputs, device, keep: bool = False):
+        z = torch.zeros((), dtype=torch.int64, device=device)
+        self.tri, self.box, self.traced, self.hits, self.steps = (
+            z.clone() for _ in range(5))
+        self.prim = torch.zeros(len(inp.ana_groups), dtype=torch.int64,
+                                device=device)
+        self.traces = [] if keep else None
+        # real triangles or prims per chunk of the pools
+        self._tri_real = (inp.tpool[:, 0:9] != 0).any(dim=1).sum(dim=1)
+        self._prim_real = (inp.apool[:, 31] > 0).sum(dim=1)
+
+    def _two_level(self, o, rd, cap, lanes, sbb, cbb, per_chunk):
+        """(slab tests, entered leaves' items) of rays o, rd [3, M] over
+        supers sbb [6, S] and their TRI_SUPER leaves cbb [6, S*16] with
+        per_chunk [S*16] items each; leaves without items are never
+        tested."""
+        sup = _slab_enters(o[:, :, None], rd[:, :, None], sbb[:, None, :],
+                           cap[:, None]) & lanes[:, None]       # [M, S]
+        real = per_chunk > 0
+        leaf_sup = sup.repeat_interleave(TRI_SUPER, dim=1)[:, real]
+        leaf = _slab_enters(o[:, :, None], rd[:, :, None],
+                            cbb[:, None, real], cap[:, None]) & leaf_sup
+        boxes = lanes.sum() * sbb.shape[1] + leaf_sup.sum()
+        return boxes, (leaf.to(torch.int64) * per_chunk[real]).sum()
+
+    def add_trace(self, inp: FusedInputs, o, d, lanes, best):
+        if self.traces is not None:
+            # copies: o and d may be views of the state rows, which the
+            # call overwrites at its end
+            self.traces.append((tuple(x.clone() for x in o),
+                                tuple(x.clone() for x in d), lanes, best))
+        self.traced += lanes.sum()
+        self.hits += (lanes & (best < _FMAX)).sum()
+        for mi, (cstart, nsup, sstart) in enumerate(inp.meshes):
+            col = inp.msc[:, mi]
+            oi = torch.stack(apply_affine(col[0:12], o))
+            dn = apply_linear(col[0:12], d)
+            nrm = torch.clamp(torch.sqrt(dn[0] * dn[0] + dn[1] * dn[1]
+                                         + dn[2] * dn[2]), min=1e-30)
+            di = torch.stack(dn) / nrm
+            nch = nsup * TRI_SUPER
+            boxes, tests = self._two_level(
+                oi, safe_rcp(di), best * nrm, lanes,
+                inp.sbb[:, sstart:sstart + nsup],
+                inp.cbb[:, cstart:cstart + nch],
+                self._tri_real[cstart:cstart + nch])
+            self.box += boxes
+            self.tri += tests
+        rd = safe_rcp(torch.stack(d))
+        for g, (_code, cstart, nchunks, sstart) in enumerate(inp.ana_groups):
+            boxes, tests = self._two_level(
+                torch.stack(o), rd, best, lanes,
+                inp.asbb[:, sstart:sstart + nchunks // TRI_SUPER],
+                inp.acbb[:, cstart:cstart + nchunks],
+                self._prim_real[cstart:cstart + nchunks])
+            self.box += boxes
+            self.prim[g] += tests
+
+
+def fused_call_reference(inp: FusedInputs, stf, sti, whole_path: int,
+                         need: Optional[K2Need] = None):
     """Plain PyTorch version of one K2 call (reference `_fused_kernel`,
     bounce_kernel.py:776-896) on any device: one bounce (whole_path = 0)
     or whole_path bounces of the wavefront state stf [15, M], sti [4, M],
-    which are updated in place."""
+    which are updated in place. `need`, if given, gets the work the call's
+    inputs need added to it (`K2Need`)."""
     o = (stf[0], stf[1], stf[2])
     d = (stf[3], stf[4], stf[5])
     attenu = (stf[6], stf[7], stf[8])
@@ -521,7 +611,7 @@ def fused_call_reference(inp: FusedInputs, stf, sti, whole_path: int):
         ordr_small = inp.ordr[:, 0, inp.sched_base:].long().repeat_interleave(
             TILE, dim=0)
 
-    def trace_fn(o, d, n_prev, p_prev):
+    def trace_fn(o, d, n_prev, p_prev, lanes):
         win = _new_win(o, n_prev, p_prev)
         _fold_table(inp.tab, inp.gsbb, inp.groups, inp.cull, ordr_small,
                     o, d, win)
@@ -529,9 +619,13 @@ def fused_call_reference(inp: FusedInputs, stf, sti, whole_path: int):
             _mesh_fold(inp, mi, o, d, win)
         for g in range(len(inp.ana_groups)):
             _ana_fold(inp, g, o, d, win)
+        if need is not None:
+            need.add_trace(inp, o, d, lanes, win[0])
         return _win_result(win)
 
     for _ in range(max(1, whole_path)):
+        if need is not None:
+            need.steps += (~done).sum()
         o, d, attenu, total, result, done, state = _bounce_step(
             trace_fn, inp.has_transparent, ior,
             o, d, attenu, total, result, done, state)
@@ -589,13 +683,51 @@ def _check_inputs(inp: FusedInputs, stf, sti):
         raise ValueError(f"K2 prim table width {inp.tab.shape[1]}")
 
 
-def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None):
+def _n_scan(sti):
+    """[1] i32 device scalar: the index of the last live ray + 1 (0 when
+    every ray is done). No host sync."""
+    m = sti.shape[1]
+    idx = torch.arange(1, m + 1, dtype=torch.int32, device=sti.device)
+    return torch.where(sti[0] == 0, idx, 0).amax().reshape(1)
+
+
+def k2_shape(n_scan: int, whole_path: int) -> int:
+    """The shape K2 takes by itself (fused_kernel chooses on the device):
+    SHAPES[0] lanes per ray in whole-path mode and from MANY_RAYS rays to
+    scan, SHAPES[1] below."""
+    return SHAPES[0] if whole_path > 0 or n_scan >= MANY_RAYS else SHAPES[1]
+
+
+def _lib(counts: bool):
+    """K2's library (its counting build with `counts`), its shape rule
+    checked against SHAPES and MANY_RAYS once per load."""
+    lib = kernels.bounce_kernel_lib(counts)
+    if not getattr(lib, "shape_rule_checked", False):
+        rule = (ctypes.c_int * 3)()
+        lib.fused_shape_rule(rule)
+        if tuple(rule) != SHAPES + (MANY_RAYS,):
+            raise RuntimeError(f"K2's build takes shapes {tuple(rule[:2])} "
+                               f"with MANY_RAYS {rule[2]}; bounce_kernel.py "
+                               f"mirrors {SHAPES} with {MANY_RAYS}")
+        lib.shape_rule_checked = True
+    return lib
+
+
+def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None,
+              shape: Optional[int] = None):
     """Launch K2 on the current CUDA stream; it updates stf and sti in
     place. Raises on bad inputs and on a refused launch; counts each
-    launch in `k2_launch.launches`. `work`, an int64 [5] CUDA tensor, if
-    given, gets the launch's ray-triangle tests, ray-box tests, large-group
-    ray-prim tests, traces and the lane slots its warps spent on chunk
-    folds added to it."""
+    launch in `k2_launch.launches`. `shape` forces the lanes per ray (one
+    of SHAPES) or, with None, lets the kernel choose from the rays to scan
+    (k2_shape), a device scalar computed here with no host sync.
+    `work`, an int64 [5] CUDA tensor, if given, gets the launch's
+    ray-triangle tests, ray-box tests, large-group ray-prim tests, traces
+    and the lane slots its warps spent on chunk folds added to it, from
+    K2's counting build (kernels.K2_COUNTS: the same kernel with the
+    counters compiled in)."""
+    if shape not in (None,) + SHAPES:
+        raise ValueError(f"K2 shape {shape!r}: lanes per ray, one of "
+                         f"{SHAPES}, or None")
     _check_inputs(inp, stf, sti)
     if whole_path < 0:
         raise ValueError(f"whole_path={whole_path}")
@@ -604,7 +736,8 @@ def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None):
                              or tuple(work.shape) != (5,)):
         raise ValueError("K2 work counters: want an int64 [5] tensor on "
                          f"{stf.device}")
-    lib = kernels.bounce_kernel_lib()
+    lib = _lib(work is not None)
+    n_scan = _n_scan(sti)
     err = lib.fused_call(
         stf.data_ptr(), sti.data_ptr(), stf.shape[1], ctypes.c_float(inp.ior),
         inp.tab.data_ptr(), inp.tab.shape[1],
@@ -619,6 +752,7 @@ def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None):
         inp.ordr.data_ptr(), inp.entr.data_ptr(), inp.ordr.shape[2],
         inp.mesh_stot, inp.sched_base, int(whole_path),
         int(inp.has_transparent), int(inp.flat_face), int(inp.cull),
+        n_scan.data_ptr(), shape or 0,
         work.data_ptr() if work is not None else ctypes.c_void_p(0),
         torch.cuda.current_stream(stf.device).cuda_stream)
     if err != 0:

@@ -315,14 +315,17 @@ def _trace_fold(inp, ordr_ray, o, d, n_prev, p_prev):
 def _bounce_step(trace_fn, has_transparent, ior,
                  o, d, attenu, total, result, done, state):
     """One bounce of tp/montecarlo.frag:109-176 (reference
-    `_bounce_step`, megakernel.py:415-534)."""
+    `_bounce_step`, megakernel.py:415-534). trace_fn(o, d, n_prev,
+    p_prev, lanes) is called for every ray; `lanes` marks the rays whose
+    trace is real (in flight, or refracting for the re-trace); the
+    others' results are discarded."""
     z = torch.zeros_like(d[0])
     one = torch.ones_like(d[0])
     unit_z = (z, z, one)
-    is_hit, N, P, shin, rough, emis, col3, alpha = trace_fn(
-        o, d, unit_z, (o[0] + d[0], o[1] + d[1], o[2] + d[2]))
-
     active = ~done
+    is_hit, N, P, shin, rough, emis, col3, alpha = trace_fn(
+        o, d, unit_z, (o[0] + d[0], o[1] + d[1], o[2] + d[2]), active)
+
     miss_now = active & ~is_hit
     live = active & is_hit
 
@@ -388,7 +391,7 @@ def _bounce_step(trace_fn, has_transparent, ior,
                        (P[0] - BIAS * N[0], P[1] - BIAS * N[1],
                         P[2] - BIAS * N[2]),
                        (o[0], o[1], z + 2.0e8))
-        _, N2r, P2r, *_unused = trace_fn(o_in, d_in, N, P)
+        _, N2r, P2r, *_unused = trace_fn(o_in, d_in, N, P, refr_lane)
         N2 = _vwhere(refr_lane, N2r, unit_z)
         P2 = _vwhere(refr_lane, P2r, P)
         d_exit = _refract_glsl(d_in, (-N2[0], -N2[1], -N2[2]), 1.0 / ior)
@@ -442,7 +445,7 @@ def mega_pass_reference(inp: MegaInputs, seed: int, nb_bounces: int,
     if inp.cull:
         ordr_ray = inp.ordr[:, 0, :].long().repeat_interleave(TILE, dim=0)
 
-    def trace_fn(o, d, n_prev, p_prev):
+    def trace_fn(o, d, n_prev, p_prev, _lanes):
         return _trace_fold(inp, ordr_ray, o, d, n_prev, p_prev)
 
     attenu = (z + 0.8, z + 0.8, z + 0.8)   # vec3(0.8) (:106-107)

@@ -187,12 +187,15 @@ def group_best_rows_sparse(o, d, shape_code, inv_r, trf_r, pid, sup_bb,
     tab, order, tlo_sorted, bound = an_inputs(o, d, inv_r, trf_r, pid, sup_bb)
     if o.device.type == "cpu":
         return an_fold_plain(o, d, tab, order, tlo_sorted, bound, shape_code)
-    return an_fold(o, d, tab, order, tlo_sorted, bound, shape_code,
+    return an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, sup_bb,
                    work=work)
 
 
-def an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, work=None):
-    """Launch K5 on the inputs of `an_inputs`."""
+def an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, sup_bb,
+            work=None):
+    """Launch K5 on the inputs of `an_inputs` and the blocks' boxes
+    sup_bb [6, nblk], which the kernel tests per ray (the plain version
+    keeps the reference's tile-wide prune alone)."""
     dev = o.device
     m = o.shape[1]
     nt, s = order.shape
@@ -203,7 +206,7 @@ def an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, work=None):
         "o": (o, _F32, (3, m)), "d": (d, _F32, (3, m)),
         "tab": (tab, _F32, (nblk, 25, SUP)), "order": (order, _I32, (nt, s)),
         "tlo_sorted": (tlo_sorted, _F32, (nt, s)),
-        "bound": (bound, _F32, (m,))})
+        "bound": (bound, _F32, (m,)), "sup_bb": (sup_bb, _F32, (6, nblk))})
     counts = check_work("K5", work, dev)
     dist = torch.empty((m,), dtype=_F32, device=dev)
     row = torch.empty((m,), dtype=_I32, device=dev)
@@ -211,8 +214,8 @@ def an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, work=None):
     dircode = torch.empty((m,), dtype=_I32, device=dev)
     lib = kernels.trace_kernels_lib()
     err = lib.an_fold(
-        o.data_ptr(), d.data_ptr(), m, tab.data_ptr(), nblk,
-        order.data_ptr(), tlo_sorted.data_ptr(), s, bound.data_ptr(),
+        o.data_ptr(), d.data_ptr(), m, tab.data_ptr(), sup_bb.data_ptr(),
+        nblk, order.data_ptr(), tlo_sorted.data_ptr(), s, bound.data_ptr(),
         int(shape_code), dist.data_ptr(), row.data_ptr(), a.data_ptr(),
         dircode.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K5", lib, err)

@@ -17,6 +17,7 @@ build or launch raises.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import warnings
 from dataclasses import dataclass, asdict
@@ -140,9 +141,12 @@ class Renderer:
     def _passes(self, base_pass: int, n_passes: int):
         """Accumulate passes base_pass .. base_pass + n_passes - 1, each over
         every ray tile, in pass order. The accumulator is updated in place
-        (`add_`), so the order of the adds is the reference's."""
+        (`add_`), so the order of the adds is the reference's. The
+        integrator gets only the route keywords its signature names, as in
+        the reference renderer (render/renderer.py:196-197)."""
         cfg = self.config
-        route = self.route
+        params = inspect.signature(self._integrator).parameters
+        route = {k: v for k, v in self.route.items() if k in params}
         for k in range(n_passes):
             for t in range(self._ntiles):
                 rgb = self._integrator(

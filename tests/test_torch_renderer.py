@@ -128,3 +128,28 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="scene is on"):
         Renderer(compile_scene(scenes.build("box_diffuse"), device="cpu"),
                  RenderConfig(width=8, height=8, device="meta"))
+
+
+def test_renderer_passes_only_the_route_keywords_an_integrator_takes(
+        monkeypatch):
+    """An integrator whose signature names only `use_kernels` of the route
+    keywords renders through Renderer.advance and gets exactly that one
+    (the reference renderer filters them by the signature,
+    render/renderer.py:196-197)."""
+    from montecarlo_pathtracing_tpu_torch.models import registry
+
+    seen = []
+
+    def kernels_only(scene, O, D, screen_tc, pass_index, *, nb_bounces,
+                     refract_ind, date=0.0, detach_sampling=False,
+                     use_kernels=False):
+        seen.append(use_kernels)
+        return torch.full((D.shape[0], 3), 0.25)
+
+    monkeypatch.setitem(registry.INTEGRATORS, "montecarlo", kernels_only)
+    dev = compile_scene(scenes.build("box_diffuse"), device="cpu")
+    r = Renderer(dev, RenderConfig(width=16, height=8, nb_bounces=2,
+                                   use_kernels=True, device="cpu"))
+    r.advance(2)
+    assert seen == [True] * (2 * r._ntiles)
+    np.testing.assert_allclose(r.image(), 0.25, rtol=1e-6)

@@ -257,7 +257,7 @@ def test_sparse_launchers_refuse_cpu_tensors():
     inputs = sp.an_inputs(o, d, *tabs, dev.group_super_bb[gi])
     before = sp.group_best_rows_sparse.launches
     with pytest.raises(ValueError, match="CUDA"):
-        sp.an_fold(o, d, *inputs, code)
+        sp.an_fold(o, d, *inputs, code, dev.group_super_bb[gi])
     assert sp.group_best_rows_sparse.launches == before
     assert sp.group_best_rows_sparse(o, d, code, *tabs,
                                      dev.group_super_bb[gi])[0].shape == (M,)
