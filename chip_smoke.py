@@ -11,8 +11,9 @@ H100, the builds included):
    (csrc/bounce_kernel.cu, and its counting build for the work counters)
    and the trace kernels K3a, K3b, K4a, K4b, K5, K6
    (csrc/trace_kernels.cu), one nvcc each, started together, and print
-   the compile reports (registers, spills; each K2 and K5 variant's on a
-   line of its own);
+   the compile reports (registers, spills; each K2, K3a, K4a and K5
+   variant's on a line of its own), and, where the toolkit has cuobjdump,
+   the instructions of K3a's and K4a's fold loops in their SASS by class;
 2. K1 against its plain version (models/megakernel.mega_pass_reference)
    on the card, 64x48 pixels, 4 bounces, passes 0 and 3, under the
    megakernel protocol (testing/parity.py), on box_diffuse (cull off,
@@ -52,9 +53,10 @@ H100, the builds included):
    800x600 and K2 by shape over one recorded pass; a 1-pass accumulation
    at 200x150 against the plain version, with K2's time by shape, the
    plain version's and the bound on that pass;
-7. each trace kernel against its plain version on the card under the
-   trace protocol (testing/parity.py; K3b and K4b: rows equal on 99.99%
-   of rays, distances bit for bit): K3a on a random 200-prim group and K3b
+7. each trace kernel against its plain version on the card (K5 and K6
+   under the trace protocol, testing/parity.py; K3a, K3b, K4a and K4b rows
+   equal on 99.99% of rays, and distances, and K3a's a and dircode, bit
+   for bit where they are): K3a on a random 200-prim group and K3b
    on a random 300-prim group with chunk boxes of each shape code (2048
    rays); K5, K3a and K3b on colonnes' two large groups, K6, K4a and K4b
    (the op mesh_best_rows with leaf and super boxes: K4b's path, which no
@@ -83,7 +85,9 @@ H100, the builds included):
 10. one pass of each path at 800x600 with cull_chunks=False: K4a and K3a
    launch counts, the image against the culled route's under the fused
    protocol, and K4a's and K3a's times, bounds and plain versions as in
-   phase 9;
+   phase 9, with each one's FMA-free ceiling (twice the bound), tests per
+   launch, lane-cycles per test at the SM clock read while timed, and the
+   compiled kernel's registers, spills and resident blocks per SM;
 11. the large scene: scenes.scene_stress(n_prims=200_000) through
    compile_scene and Renderer.advance with use_megakernel=False, 800x600,
    3 bounces, a 1-pass window: its 150,016-prim sphere group takes K3b
@@ -105,6 +109,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -121,6 +126,7 @@ from montecarlo_pathtracing_tpu_torch.ops import pallas_trace as ptk
 from montecarlo_pathtracing_tpu_torch.ops import sparse_trace as spk
 from montecarlo_pathtracing_tpu_torch.ops import trace as trace_mod
 from montecarlo_pathtracing_tpu_torch.ops.rng import seed_y
+from montecarlo_pathtracing_tpu_torch.ops.shapes import SOA_FNS
 from montecarlo_pathtracing_tpu_torch.ops.sort_rays import ray_sort_key
 from montecarlo_pathtracing_tpu_torch.ops.vec import safe_rcp
 from montecarlo_pathtracing_tpu_torch.render.camera import (
@@ -238,9 +244,10 @@ def _timed(launch, ahead=True):
 
 
 @contextlib.contextmanager
-def clocks(label, period_ms=100):
+def clocks(label, period_ms=100, out=None):
     """Sample the card's SM clock and power draw with nvidia-smi every
-    period_ms while the block runs, and print their range."""
+    period_ms while the block runs, and print their range; the median SM
+    clock in MHz goes to out["mhz"] when `out` is a dict."""
     proc = subprocess.Popen(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
          "--format=csv,noheader,nounits", "-lms", str(period_ms)],
@@ -249,15 +256,17 @@ def clocks(label, period_ms=100):
         yield
     finally:
         proc.terminate()
-        out, _ = proc.communicate(timeout=30)
+        text, _ = proc.communicate(timeout=30)
         rows = []
-        for line in out.splitlines():
+        for line in text.splitlines():
             try:
                 rows.append([float(x) for x in line.split(",")])
             except ValueError:
                 pass
         if rows:
             mhz, watts = np.array(rows).T
+            if out is not None:
+                out["mhz"] = float(np.median(mhz))
             print(f"{label}: SM clock {mhz.min():.0f}-{mhz.max():.0f} MHz "
                   f"(median {np.median(mhz):.0f}), power {watts.min():.1f}-"
                   f"{watts.max():.1f} W over {len(rows)} samples",
@@ -907,27 +916,30 @@ def record_launches(kid, rec):
         setattr(mod, name, real)
 
 
-def _needed(kid, args, out, work):
+def _needed(kid, args, out):
     """The work one launch's function needs on its inputs, as int64
     device scalars (tests, hits, box tests): the tests that cost FRAME_OPS
     plus SHAPE_OPS (K3a, K3b, K5) or TRI_OPS each (K4a, K4b, K6), the hits
     that cost HIT_OPS more (K3a, K3b, K5), and the slab tests that cost
     BOX_OPS each (K3b, K4b). A brute fold (K3a, K4a) tests every ray
-    against every real prim or triangle; K3a's hits are its counted
-    shape-test passes, the same for any order of that fold. Every culled
-    fold and walk has one rule: a ray must fold the real prims or
-    triangles of each chunk or block whose box it enters within its final
-    best (K3b, K4b: _culled_needed; a culled fold tests every ray against
-    every real chunk box, K3b, or every super box and, in the supers the
-    ray enters so, every real leaf box, K4b) or its final min(best,
-    bound) (K5: the 8-prim blocks' boxes sup_bb; K6: the 128-triangle
-    chunks' boxes, the bounds of their real triangles). K3b's and K5's
-    hits are counted once per ray with a winner, the least any fold
-    needs. `out` is the launch's result, `work` its counters."""
+    against every real prim or triangle; K3a's hits are the pairs among
+    those whose shape test passes (_group_passes), the same for any order
+    of that fold. Every culled fold and walk has one rule: a ray must
+    fold the real prims or triangles of each chunk or block whose box it
+    enters within its final best (K3b, K4b: _culled_needed; a culled fold
+    tests every ray against every real chunk box, K3b, or every super box
+    and, in the supers the ray enters so, every real leaf box, K4b) or its
+    final min(best, bound) (K5: the 8-prim blocks' boxes sup_bb; K6: the
+    128-triangle chunks' boxes, the bounds of their real triangles). K3b's
+    and K5's hits are counted once per ray with a winner, the least any
+    fold needs. `out` is the launch's result."""
     o = args[0]
     zero = torch.zeros((), dtype=torch.int64, device=o.device)
     if kid == "K3a":
-        return work[0], work[2], zero
+        code, inv_r, pid = args[2], args[3], args[5]
+        real = pid[0] >= 0
+        return (o.shape[1] * real.sum(),
+                _group_passes(o, args[1], code, inv_r[:, real]), zero)
     if kid == "K4a":
         tri = args[2]
         return o.shape[1] * (tri != 0).any(dim=0).sum(), zero, zero
@@ -946,6 +958,29 @@ def _needed(kid, args, out, work):
     tests = _entered_items(o, safe_rcp(args[1]), boxes[:, units], cap,
                            per_unit[units])
     return tests, ((out[1] >= 0).sum() if kid == "K5" else zero), zero
+
+
+def _group_passes(o, d, code, inv, step=128):
+    """The (ray, prim) pairs of rays o, d [3, M] and prims with inverse
+    rows inv [12, n] whose shape test passes: the plain version's local
+    frame and SOA shape test (ptk._group_chunk), `step` prims at a time."""
+    fn = SOA_FNS[code]
+    ox, oy, oz = (o[k][:, None] for k in range(3))
+    dx, dy, dz = (d[k][:, None] for k in range(3))
+    total = torch.zeros((), dtype=torch.int64, device=o.device)
+    for c in range(0, inv.shape[1], step):
+        iv = [inv[r, c:c + step][None, :] for r in range(12)]
+        lox = iv[0] * ox + iv[1] * oy + iv[2] * oz + iv[3]
+        loy = iv[4] * ox + iv[5] * oy + iv[6] * oz + iv[7]
+        loz = iv[8] * ox + iv[9] * oy + iv[10] * oz + iv[11]
+        tdx = iv[0] * dx + iv[1] * dy + iv[2] * dz
+        tdy = iv[4] * dx + iv[5] * dy + iv[6] * dz
+        tdz = iv[8] * dx + iv[9] * dy + iv[10] * dz
+        nrm = torch.clamp(torch.sqrt(tdx * tdx + tdy * tdy + tdz * tdz),
+                          min=1e-30)
+        _, valid, _ = fn(lox, loy, loz, tdx / nrm, tdy / nrm, tdz / nrm)
+        total += valid.sum()
+    return total
 
 
 def _tri_chunk_boxes(tri, real):
@@ -1034,7 +1069,7 @@ def _time_recorded(kid, rec, reps=3, ahead=True, count=True):
     needed = torch.zeros((len(rec), 3), dtype=torch.int64, device=dev)
     for i, (real, args, kw) in enumerate(rec if count else ()):
         out = real(*args, **kw, work=work[i])
-        needed[i] = torch.stack(_needed(kid, args, out, work[i]))
+        needed[i] = torch.stack(_needed(kid, args, out))
     events, late = [], 0
     for rep in range(reps):
         for real, args, kw in rec:
@@ -1050,8 +1085,9 @@ def _time_recorded(kid, rec, reps=3, ahead=True, count=True):
 def _plain_vs_kernel(kid, rec, n=8, sub=None):
     """Kernel kid against its plain version on a subset of n recorded
     full-size launches (every k-th of the pass, or the launches `sub`):
-    both outputs under the trace protocol (K3b and K4b: rows equal on
-    EXACT_ROWS of the rays, distances bit-equal), and each side's mean ms
+    K3a, K3b, K4a and K4b by _check_exact (rows equal on EXACT_ROWS of the
+    rays, distances bit-equal where they are, and K3a's a and dircode), K5
+    and K6 under the trace protocol, and each side's mean ms
     per launch by CUDA events. Returns (plain ms, kernel ms on the same
     launches, max abs error)."""
     if sub is None:
@@ -1069,8 +1105,8 @@ def _plain_vs_kernel(kid, rec, n=8, sub=None):
         kern_ms.append(e[0].elapsed_time(e[1]))
         plain_ms.append(e[2].elapsed_time(e[3]))
         what = f"{kid} full-size launch vs plain"
-        if kid in ("K3b", "K4b"):
-            err = max(err, _check_exact(what, ref, got))
+        if kid in ("K3a", "K3b", "K4a", "K4b"):
+            err = max(err, _check_exact(what, ref, got, every=kid == "K3a"))
             continue
         ref2 = (ref[0].cpu().numpy(), ref[1].cpu().numpy())
         got2 = (got[0].cpu().numpy(), got[1].cpu().numpy())
@@ -1136,16 +1172,28 @@ def _instance_tris(dev, mi):
 EXACT_ROWS = 0.9999
 
 
-def _check_exact(what, ref, got):
+def _bits(x):
+    """A float32 or int32 tensor's bits as a numpy int32 array."""
+    x = x.contiguous()
+    return (x.view(torch.int32) if x.dtype == torch.float32
+            else x.to(torch.int32)).cpu().numpy()
+
+
+def _check_exact(what, ref, got, every=False):
     """_check_trace, and rows equal on EXACT_ROWS of the rays with equal
-    distances where the rows are equal."""
+    distances where the rows are equal; with `every`, the fold's other
+    outputs (K3a's a and dircode) bit-equal there too. Prints how many rows
+    differ."""
     err = _check_trace(what, ref, got)
     rr, gr = ref[1].cpu().numpy(), got[1].cpu().numpy()
     same = rr == gr
-    if same.mean() < EXACT_ROWS or not np.array_equal(
-            ref[0].cpu().numpy()[same], got[0].cpu().numpy()[same]):
+    print(f"{what}: {int((~same).sum())} of {same.size} rows differ",
+          flush=True)
+    outs = (0,) + (tuple(range(2, len(ref))) if every else ())
+    if same.mean() < EXACT_ROWS or not all(np.array_equal(
+            _bits(ref[i])[same], _bits(got[i])[same]) for i in outs):
         raise AssertionError(f"{what}: rows equal on {same.mean():.6f} of "
-                             f"rays (need {EXACT_ROWS}) or distances not "
+                             f"rays (need {EXACT_ROWS}) or outputs {outs} not "
                              f"bit-equal where rows are")
     return err
 
@@ -1172,8 +1220,8 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
         tables = ptk._pad_group(trf, inv, pid)
         got = ptk.group_best_rows(o, d, code, *tables)
         ref = ptk.group_best_rows_plain(o, d, code, *tables)
-        worst["K3a"] = max(worst["K3a"], _check_trace(
-            f"K3a shape {code} vs plain", ref, got))
+        worst["K3a"] = max(worst["K3a"], _check_exact(
+            f"K3a shape {code} vs plain", ref, got, every=True))
         trf, inv, pid = random_group(transforms, code, 300, 100 * code + 300)
         tables = ptk._pad_group(*(torch.as_tensor(a, device=device)
                                   for a in (trf, inv, pid)))
@@ -1202,8 +1250,8 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
         tag = f"colonnes group {gi} (shape {code}, {tables[0].shape[1]} prims)"
         worst["K5"] = max(worst["K5"], _check_trace(f"K5 {tag} vs plain",
                                                     p5, k5))
-        worst["K3a"] = max(worst["K3a"], _check_trace(f"K3a {tag} vs plain",
-                                                      p3, k3))
+        worst["K3a"] = max(worst["K3a"], _check_exact(f"K3a {tag} vs plain",
+                                                      p3, k3, every=True))
         worst["K3b"] = max(worst["K3b"], _check_exact(f"K3b {tag} vs plain",
                                                       p3b, k3b))
         _check_trace(f"K5 vs K3a {tag}", k3, k5)
@@ -1234,7 +1282,7 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
                        f"under {cbb.shape[1]} leaf boxes, {m} rays)")
                 worst["K6"] = max(worst["K6"], _check_trace(
                     f"K6 {tag} vs plain", p6, k6))
-                worst["K4a"] = max(worst["K4a"], _check_trace(
+                worst["K4a"] = max(worst["K4a"], _check_exact(
                     f"K4a {tag} vs plain", p4, k4))
                 _check_trace(f"K6 vs K4a {tag}", k4, k6)
                 for supers in ((sbb, None) if name == "mesh_hires"
@@ -1339,12 +1387,18 @@ def _launches_per_pass(dev, r, kid):
     return r._ntiles * r.config.nb_bounces * traces * units
 
 
-def _pass_stats(kid, r, rec):
+def _pass_stats(kid, r, rec, out=None):
     """Kernel kid over one recorded pass: printed ms per launch and pass,
     by bounce, its work and bound; returns (ms per launch, ms per pass,
-    bound ms per launch, bound ms per pass, bounded by)."""
-    with clocks(f"{kid} timed alone"):
+    bound ms per launch, bound ms per pass, bounded by). When `out` is a
+    dict it gets the median SM clock while timed ("mhz") and the tests
+    needed per launch ("tests", those of the bound)."""
+    clk = {}
+    with clocks(f"{kid} timed alone", out=clk):
         ms, work, needed, late = _time_recorded(kid, rec)
+    if out is not None:
+        out.update(mhz=clk.get("mhz", float("nan")),
+                   tests=float(needed[:, 0].astype(np.float64).mean()))
     paced = _time_recorded(kid, rec, reps=1, ahead=False, count=False)
     ops = sum(_needed_ops(kid, args, int(n[0]), int(n[1]), int(n[2]))
               for n, (_, args, _) in zip(needed, rec))
@@ -1484,13 +1538,42 @@ def phase_trace_brute(device, name, light, ior, kid, bounces, w=800, h=600,
           f"image vs the culled route off={off:.4f} (allowed {FUSED_FRAC}) "
           f"max_abs_err={err:.3e}", flush=True)
     assert_fused_protocol(imgs[None], imgs[False], f"{name} brute vs culled")
+    extra = {}
     ms_launch, ms_pass, bound_launch, bound_pass, bound_by = _pass_stats(
-        kid, r, rec)
+        kid, r, rec, out=extra)
+    _brute_stats(kid, dev, ms_launch, bound_launch, extra)
     plain_ms, kern_ms, err = _plain_vs_kernel(kid, rec)
     return dict(launches=counts[kid], ms=ms_launch, ms_pass=ms_pass,
                 plain_ms=plain_ms, bound_ms=bound_launch,
                 bound_pass=bound_pass, bound_by=bound_by, max_abs_err=err,
                 rec=rec)
+
+
+def _brute_stats(kid, dev, ms, bound_ms, extra):
+    """Print what bounds brute kernel kid on its window: the FMA-free
+    ceiling (twice the bound: the build rounds every multiply and add on
+    its own, so each FP32 operation of the bound, an FMA counted as two,
+    is one instruction), tests per launch, lane-cycles per test at the SM
+    clock read while it was timed (SMs x 128 FP32 lanes), and the
+    compiled kernel's registers, spills and resident blocks per SM
+    (ptk.brute_kernel_info; K3a for each of the scene's large groups'
+    shape codes)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tests = extra["tests"]
+    cycles = ms * 1e-3 * extra["mhz"] * 1e6 * sms * 128 / tests
+    codes = ([None] if kid == "K4a" else sorted(
+        {int(c) for c, p in zip(dev.group_codes, dev.group_prim)
+         if int(p.shape[0]) > trace_mod.SMALL_GROUP_MAX}))
+    infos = "; ".join(
+        (f"shape {c}: " if c is not None else "")
+        + "{registers} registers, {local_bytes} bytes of spills, "
+        "{shared_bytes} bytes shared, {blocks_per_sm} blocks of {threads} "
+        "threads per SM".format(
+            **ptk.brute_kernel_info(kid, c or 1)) for c in codes)
+    print(f"{kid} brute: {ms:.4f} ms per launch against a bound of "
+          f"{bound_ms:.4f} ms and an FMA-free ceiling of {2 * bound_ms:.4f} "
+          f"ms; {tests:.6g} tests per launch, {cycles:.1f} lane-cycles per "
+          f"test at {extra['mhz']:.0f} MHz ({sms} SMs); {infos}", flush=True)
 
 
 def _k3b_scan_ms(launch, reps=10):
@@ -1666,6 +1749,76 @@ def print_registers(log, kernel):
             entry = None
 
 
+_SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);")
+_SASS_CLASSES = (("FP32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL",
+                           "FCHK")),
+                 ("MUFU", ("MUFU",)), ("shared loads", ("LDS",)),
+                 ("branch-class", ("BRA", "BSSY", "BSYNC", "CALL", "RET",
+                                   "VOTE", "WARPSYNC")))
+
+
+def _fold_loop(ins):
+    """ins [(address, opcode, operands)] of one function: its fold loop,
+    the innermost backward branch whose body holds a VOTE.ANY, split at
+    the vote into the instructions every test runs and the gated rest,
+    each counted by class; None where there is no such loop."""
+    loops = []
+    for i, (_, op, rest) in enumerate(ins):
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        if not (op.startswith("BRA") and m):
+            continue
+        lo = next((k for k, (a, _, _) in enumerate(ins)
+                   if a == int(m.group(1), 16)), None)
+        if lo is not None and lo < i and any(
+                o.startswith("VOTE.ANY") for _, o, _ in ins[lo:i]):
+            loops.append((i - lo, lo, i))
+    if not loops:
+        return None
+    _, lo, hi = min(loops)
+    body = [op for _, op, _ in ins[lo:hi + 1]]
+    vote = next(k for k, op in enumerate(body) if op.startswith("VOTE"))
+    parts = {}
+    for part, ops in (("every test", body[:vote + 2]),
+                      ("gated", body[vote + 2:])):
+        parts[part] = {"all": len(ops), **{
+            cls: sum(op.split(".")[0] in names for op in ops)
+            for cls, names in _SASS_CLASSES}}
+    return parts
+
+
+def print_fold_sass():
+    """The fold loops of K3a (group_kernel, by shape code) and K4a
+    (tri_kernel) in the SASS of the loaded trace kernels (cuobjdump beside
+    nvcc; nothing where the toolkit lacks it), one line each."""
+    tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        print("cuobjdump not found: SASS not read", flush=True)
+        return
+    sass = subprocess.run([tool, "-sass",
+                           kernels.library_path("trace_kernels")],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, ins = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*(group_kernel|tri_kernel)(?:ILi(\d))?",
+                      line)
+        if m:
+            ins = funcs.setdefault(
+                m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""), [])
+            continue
+        if "Function :" in line:
+            ins = None
+        m = _SASS_OP.search(line)
+        if ins is not None and m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    for name, body in sorted(funcs.items()):
+        parts = _fold_loop(body)
+        print(f"SASS fold loop of {name}: " + ("; ".join(
+            f"{part} " + ", ".join(f"{k} {v}" for k, v in c.items())
+            for part, c in parts.items()) if parts else "not found"),
+              flush=True)
+
+
 def _trace_line(kid, res):
     name, replaces, _ = TRACE_KERNELS[kid]
     return {"name": name, "route": "cuda", "source": TRACE_SOURCE,
@@ -1693,7 +1846,9 @@ def main() -> int:
     print(kernels.build_log("bounce_kernel").strip(), flush=True)
     print(kernels.build_log("trace_kernels").strip(), flush=True)
     print_registers(kernels.build_log("bounce_kernel"), "fused_kernel")
-    print_registers(kernels.build_log("trace_kernels"), "an_walk")
+    for kernel in ("an_walk", "group_kernel", "tri_kernel"):
+        print_registers(kernels.build_log("trace_kernels"), kernel)
+    print_fold_sass()
 
     worst = phase_parity("cuda")
     res = phase_main_path("cuda")

@@ -26,18 +26,52 @@
 // Their plain PyTorch versions are the *_plain functions beside the
 // wrappers; chip_smoke.py holds each kernel against its plain version.
 //
-// Design. One thread per ray, its best hit in registers. K3a reads the
-// group's table columns with __ldg: every thread of a warp reads the same
-// column, so each load is one broadcast. K4a and K6 stage each chunk's
-// [9, 128] corner rows (4.6 KB) in shared memory, one column per thread,
-// and every thread then tests all 128 triangles from there. K5 reads an
-// 8-prim block's [25, 8] table (inverse rows, forward rows, ok flag) as
-// warp-wide broadcasts (see "The walks"). Folds run in
+// Design. One thread per ray, its best hit in registers. Folds run in
 // ascending prim or triangle order with a strict `<`: the TPU kernels'
 // first minimum inside a chunk followed by a strictly-closer merge across
 // chunks (pallas_trace.py:204-224) is exactly that scan, so the winners,
-// ties included, are the TPU kernels'. Padding prims (scene id < 0 in K3a,
-// ok flag 0 in K5) never win; padding triangles are degenerate.
+// ties included, are the TPU kernels', and every output equals the plain
+// versions' bit for bit. Padding prims (scene id < 0 in K3a and K3b, ok
+// flag 0 in K5) never win; padding triangles are degenerate. K3b reads the
+// group's table columns with __ldg, the same column by every thread of a
+// warp: one broadcast each. K4b and K6 stage each chunk's [9, 128] corner
+// rows (4.6 KB) in shared memory, one column per thread, and every thread
+// then tests the chunk's triangles from there. K5 reads an 8-prim block's
+// [25, 8] table (inverse rows, forward rows, ok flag) as warp-wide
+// broadcasts (see "The walks").
+//
+// The brute folds (K3a, K4a) are bound by the instructions they issue:
+// every FP32 operation is one (no FMA, below), and each IEEE division and
+// square root adds a range check and a slow-path branch. K4a's fold loop
+// issues about 50 instructions a test up to its reject on u (10 of them
+// the reciprocal), K3a's 130-290 a test by shape up to its hit path
+// (chip_smoke.py phase 1 counts them in the SASS). So their design cuts
+// instructions, one ray a thread:
+// - K4a stages each chunk as the corner A and the edges e1 = B - A and
+//   e2 = C - A (mt_hit's own subtractions, once a chunk and not once a
+//   test), a float4 each: three 16-byte shared broadcasts a test. The
+//   next chunk is loaded into registers while this one is folded and
+//   staged into the other buffer after it: one barrier a chunk. 1 / det
+//   is given 1 where |det| < EPS, so a degenerate triangle takes no slow
+//   path. q, v and a run only where some ray of the warp has |det| >= EPS
+//   and u in [0, 1]: every other test is rejected whatever they are.
+// - K3a stages each 128-prim chunk's inverse and forward rows in shared
+//   memory as [prim][row] float4s (12 KB): three broadcasts for the local
+//   frame, three more for the forward rows, read only where some ray of
+//   the warp passes the shape test. A prim with scene id < 0 is staged
+//   with a NaN inverse frame, which fails every shape test, and the chunk
+//   stops one past its last prim with scene id >= 0 (the group's padding
+//   costs nothing). Its shape tests give each square root and division
+//   whose result they would mask an argument of 1, so that the lanes of a
+//   miss skip the IEEE slow path (sqrtf(0) takes it); the values they keep
+//   are common.cuh's, float for float.
+// - Measured on an H100 and dropped (PERF.md): 2 and 4 rays a thread,
+//   slower on both: a 128-thread block then holds 2 or 4 times the rays,
+//   so fewer warps share an SM, and the shared reads they save are few;
+//   and 2 or 4 prims or triangles a step, no faster. K4a's reject on u is
+//   its largest step and double buffering its smallest. The select form
+//   itself compiles to about the same branches as common.cuh's tests: the
+//   masked arguments are K3a's gain there.
 //
 // The culled folds (K3b, K4b). Before a chunk each ray tests the chunk's
 // box against its running best (the reference's slab test, with
@@ -95,12 +129,14 @@
 // test about 24. The bytes are few: rays in, winners out, chunk boxes,
 // tables read from L1 and L2 (a group's [25, P] table is 52 KB at 512 prims;
 // mesh_demo's largest instance is 83 KB of corners). What keeps them from
-// that bound: divergence inside the shape tests, the brute kernels' tests of
-// prims a ray can never hit, and in the walks the chunks a block visits for
-// its few rays that still need them.
+// that bound: the IEEE divisions' and square roots' extra instructions, the
+// brute kernels' tests of prims a ray can never hit, and in the walks the
+// chunks a block visits for its few rays that still need them.
 //
 // Work counters, when `counts` is set: [0] ray-prim or ray-triangle tests
-// done, [1] 128-prim chunks (K3a) or chunks (K4a, K6) that blocks visited,
+// done (K3a and K4a: every ray against each chunk's items up to its end,
+// so a prim with scene id < 0 before a chunk's last real prim counts
+// too), [1] 128-prim chunks (K3a) or chunks (K4a, K6) that blocks visited,
 // 8-prim blocks that warps entered (K5), or chunks that warps (K3b) or
 // blocks (K4b) entered,
 // [2] tests that hit (the shape test passed, or the triangle was hit); K3b
@@ -198,24 +234,240 @@ __device__ __forceinline__ void fold_prims(const float* __restrict__ inv,
 // K3a: every prim of one group, ascending
 // ---------------------------------------------------------------------------
 
+// K3a's shape tests: common.cuh's, term for term, in select form, with each
+// square root and division whose result the test would mask given an
+// argument of 1 instead. The masked lanes then skip the IEEE square root's
+// and division's slow paths (a zero or an infinite argument), and every
+// value the test keeps is the same float as common.cuh's.
+__device__ __forceinline__ bool g_sphere(V3 o, V3 d, float& a, int& code) {
+  const float OO = o.x * o.x + o.y * o.y + o.z * o.z;
+  const float OD = o.x * d.x + o.y * d.y + o.z * d.z;
+  const float D2 = d.x * d.x + d.y * d.y + d.z * d.z;
+  const float delta4 = OD * OD - D2 * (OO - 1.0f);
+  const bool ok = delta4 > 0.0f;
+  const float sq = sqrtf(ok ? delta4 : 1.0f);
+  const float den = ok ? D2 : 1.0f;
+  const float a1 = -(OD + sq) / den;
+  const float a2 = -(OD - sq) / den;
+  const bool v1 = ok && (a1 > EPS);
+  const bool v2 = ok && (a2 > EPS);
+  a = v1 ? a1 : (v2 ? a2 : FMAX);
+  code = 0;
+  return v1 || v2;
+}
+
+__device__ __forceinline__ bool g_quad(V3 o, V3 d, float& a, int& code) {
+  const bool facing = d.z <= -EPS;
+  const float t = -o.z / (facing ? d.z : -1.0f);
+  const float px = o.x + t * d.x;
+  const float py = o.y + t * d.y;
+  const bool valid = facing && (fabsf(px) <= 1.0f) && (fabsf(py) <= 1.0f);
+  a = valid ? t : FMAX;
+  code = 0;
+  return valid;
+}
+
+__device__ __forceinline__ bool g_cube(V3 o3, V3 d3, float& a, int& code) {
+  const float o[3] = {o3.x, o3.y, o3.z};
+  const float d[3] = {d3.x, d3.y, d3.z};
+  float al = FMAX;
+  int face = 0;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const int c0 = c / 2, c1 = (c0 + 1) % 3, c2 = (c0 + 2) % 3;
+    const float cd = -1.0f + 2.0f * (c % 2);
+    const bool dok = fabsf(d[c0]) > EPS;
+    const float t = (cd - o[c0]) / (dok ? d[c0] : 1.0f);
+    const bool v = dok && (t > EPS) && (fabsf(o[c1] + t * d[c1]) <= 1.0f) &&
+                   (fabsf(o[c2] + t * d[c2]) <= 1.0f) && (t < al);
+    al = v ? t : al;
+    face = v ? c : face;
+  }
+  a = al;
+  code = face;
+  return al < FMAX;
+}
+
+__device__ __forceinline__ bool g_cylinder(V3 o, V3 d, float& a, int& code) {
+  float al = FMAX;
+  int cl = -1;
+  const bool dz_ok = fabsf(d.z) > EPS;
+  const float dz = dz_ok ? d.z : 1.0f;
+#pragma unroll
+  for (int cap = 0; cap < 2; ++cap) {
+    const float zplane = cap ? 1.0f : -1.0f;
+    const float t = (zplane - o.z) / dz;
+    const float rx = o.x + t * d.x;
+    const float ry = o.y + t * d.y;
+    const bool v = dz_ok && (t > EPS) && (rx * rx + ry * ry < 1.0f) && (t < al);
+    al = v ? t : al;
+    cl = v ? cap : cl;
+  }
+  const float O2 = o.x * o.x + o.y * o.y;
+  const float OD = o.x * d.x + o.y * d.y;
+  const float D2 = d.x * d.x + d.y * d.y;
+  const float delta4 = OD * OD - D2 * (O2 - 1.0f);
+  const bool ok = delta4 > 0.0f;
+  const float t = -(OD + sqrtf(ok ? delta4 : 1.0f)) / (ok ? D2 : 1.0f);
+  const float z = o.z + t * d.z;
+  const bool v = ok && (t > EPS) && (t < al) && (fabsf(z) < 1.0f);
+  a = v ? t : al;
+  code = v ? 2 : cl;
+  return a < FMAX;
+}
+
+__device__ __forceinline__ bool g_cone(V3 o, V3 d, float& a, int& code) {
+  const bool dz_ok = fabsf(d.z) > EPS;
+  const float t0 = (-1.0f - o.z) / (dz_ok ? d.z : 1.0f);
+  const float rx = o.x + t0 * d.x;
+  const float ry = o.y + t0 * d.y;
+  const bool v0 = dz_ok && (t0 > EPS) && (rx * rx + ry * ry < 1.0f) && (t0 < FMAX);
+  float tl = v0 ? t0 : FMAX;
+  int cl = v0 ? 0 : -1;
+  const float k = 0.8f;  // cos^2 of the cone's half-angle
+  const float coz = o.z - 1.0f;
+  const float dco = d.x * o.x + d.y * o.y + d.z * coz;
+  const float coco = o.x * o.x + o.y * o.y + coz * coz;
+  const float a_ = d.z * d.z - k;
+  const float b_ = 2.0f * (d.z * coz - dco * k);
+  const float c_ = coz * coz - coco * k;
+  const float det = b_ * b_ - 4.0f * a_ * c_;
+  const bool ok = det > 0.0f;
+  const float sq = sqrtf(ok ? det : 1.0f);
+  float t1 = (-b_ - sq) / (2.0f * a_);
+  float t2 = (-b_ + sq) / (2.0f * a_);
+  t1 = fabsf(o.z + t1 * d.z) > 1.0f ? FMAX : t1;
+  t2 = fabsf(o.z + t2 * d.z) > 1.0f ? FMAX : t2;
+  // the reference's minimum propagates nan, which then fails `t < tl`
+  const bool nan = isnan(t1) || isnan(t2);
+  const float t = fminf(t1, t2);
+  const bool v = !nan && ok && (t < tl);
+  a = v ? t : tl;
+  code = v ? 2 : cl;
+  return a < FMAX;
+}
+
+template <int SHAPE>
+__device__ __forceinline__ bool group_shape(V3 o, V3 d, float& a, int& code) {
+  if (SHAPE == SPHERE) return g_sphere(o, d, a, code);
+  if (SHAPE == CUBE) return g_cube(o, d, a, code);
+  if (SHAPE == CYLINDER) return g_cylinder(o, d, a, code);
+  if (SHAPE == CONE) return g_cone(o, d, a, code);
+  return g_quad(o, d, a, code);
+}
+
+// a staged prim: its inverse and forward affine rows, four floats a
+// float4, so that a thread reads a 3x4 matrix as three 16-byte broadcasts
+struct StagedPrim {
+  float4 inv[3], trf[3];
+};
+
+__device__ __forceinline__ void unpack(const float4 (&m)[3], float (&f)[12]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    f[4 * k] = m[k].x;
+    f[4 * k + 1] = m[k].y;
+    f[4 * k + 2] = m[k].z;
+    f[4 * k + 3] = m[k].w;
+  }
+}
+
+// 1 + the largest chunk index whose flag is set, over the block's threads
+// (one per chunk column): each warp's maximum goes to ends[warp] and the
+// block's is read after the next barrier (chunk_end)
+__device__ __forceinline__ void put_end(int* ends, bool real) {
+  const int end = __reduce_max_sync(FULL, real ? static_cast<int>(threadIdx.x) + 1 : 0);
+  if (threadIdx.x % 32 == 0) ends[threadIdx.x / 32] = end;
+}
+
+__device__ __forceinline__ int chunk_end(const int* ends) {
+  int end = 0;
+#pragma unroll
+  for (int w = 0; w < CHUNK / 32; ++w) end = max(end, ends[w]);
+  return end;
+}
+
+// stage column p of the group's tables in slot s. A prim with scene id < 0
+// gets a NaN inverse frame: its local ray is NaN, which fails every shape
+// test, so it never hits, as the padding masked by the plain version.
+__device__ __forceinline__ void stage_prim(StagedPrim& s, int* ends, const float* inv,
+                                           const float* trf, const int* pid, int ppad, int p) {
+  const bool real = __ldg(pid + p) >= 0;
+  float iv[12], tf[12];
+#pragma unroll
+  for (int r = 0; r < 12; ++r) {
+    iv[r] = real ? ld(inv, r, ppad, p) : __int_as_float(0x7fc00000);
+    tf[r] = ld(trf, r, ppad, p);
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    s.inv[k] = make_float4(iv[4 * k], iv[4 * k + 1], iv[4 * k + 2], iv[4 * k + 3]);
+    s.trf[k] = make_float4(tf[4 * k], tf[4 * k + 1], tf[4 * k + 2], tf[4 * k + 3]);
+  }
+  put_end(ends, real);
+}
+
+// the staged prims [0, end) of chunk c folded, ascending, into the ray's
+// best under the strictly-closer rule. The local frame and the shape test
+// run for every prim; the forward rows, the hit point and the distance
+// only when some ray of the warp passes the shape test.
+template <int SHAPE>
+__device__ __forceinline__ void group_fold(const StagedPrim* s, int end, int c, V3 ro, V3 rd,
+                                           float& bd, int& brow, float& ba, int& bdir,
+                                           uint32_t& hits) {
+  for (int j = 0; j < end; ++j) {
+    float iv[12];
+    unpack(s[j].inv, iv);
+    const V3 oi = affine(iv, ro);
+    const V3 di = vnorm(linear(iv, rd), TINY);
+    float a;
+    int code;
+    const bool ok = group_shape<SHAPE>(oi, di, a, code);
+    if (!__any_sync(FULL, ok)) continue;
+    float tf[12];
+    unpack(s[j].trf, tf);
+    if (!ok) continue;
+    ++hits;
+    const V3 pl = {oi.x + a * di.x, oi.y + a * di.y, oi.z + a * di.z};
+    const V3 e = sub(ro, affine(tf, pl));
+    const float dist = sqrtf(e.x * e.x + e.y * e.y + e.z * e.z);
+    if (dist < bd) {
+      bd = dist;
+      brow = c * CHUNK + j;
+      ba = a;
+      bdir = code;
+    }
+  }
+}
+
 template <int SHAPE>
 __global__ void __launch_bounds__(CHUNK)
     group_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
                  const float* __restrict__ inv, const float* __restrict__ trf,
                  const int* __restrict__ pid, int ppad, float* dist_out, int* row_out,
                  float* a_out, int* dir_out, unsigned long long* counts) {
+  __shared__ StagedPrim s[CHUNK];
+  __shared__ int ends[CHUNK / 32];
   const int ray = blockIdx.x * CHUNK + threadIdx.x;
   const V3 ro = ray_at(o, M, ray);
   const V3 rd = ray_at(d, M, ray);
   float bd = FMAX, ba = 0.0f;
   int brow = -1, bdir = -1;
+  const int nchunks = ppad / CHUNK;
   uint32_t tests = 0, hits = 0;
-  fold_prims<SHAPE>(inv, trf, pid, ppad, 0, ppad, ro, rd, bd, brow, ba, bdir, tests, hits);
+  for (int c = 0; c < nchunks; ++c) {
+    __syncthreads();  // every thread is done with the previous chunk
+    stage_prim(s[threadIdx.x], ends, inv, trf, pid, ppad, c * CHUNK + threadIdx.x);
+    __syncthreads();
+    const int end = chunk_end(ends);
+    tests += end;
+    group_fold<SHAPE>(s, end, c, ro, rd, bd, brow, ba, bdir, hits);
+  }
   dist_out[ray] = bd;
   row_out[ray] = bd < FMAX ? brow : -1;
   a_out[ray] = ba;
   dir_out[ray] = bdir;
-  add_counts(counts, tests, ppad / CHUNK, hits);
+  add_counts(counts, tests, nchunks, hits);
 }
 
 // ---------------------------------------------------------------------------
@@ -291,27 +543,99 @@ __device__ __forceinline__ void fold_chunk(const float (&s)[9][CHUNK], int c, V3
   }
 }
 
+// a triangle staged for K4a: its corner A and its edges e1 = B - A and
+// e2 = C - A (mt_hit's own subtractions, done once a chunk instead of once a
+// test), a float4 each, so that a thread reads it as three 16-byte
+// broadcasts
+struct StagedTri {
+  float4 a, e1, e2;
+};
+
+// triangle column t of the [9, ppad] corner rows, into registers
+__device__ __forceinline__ void load_tri(const float* tri, int ppad, int t, float (&v)[9]) {
+#pragma unroll
+  for (int r = 0; r < 9; ++r) v[r] = __ldg(tri + r * ppad + t);
+}
+
+// the loaded triangle into slot s; the chunk's end counts the triangles up
+// to the last one with a nonzero corner (the zero padding of pad_tris
+// behind it is degenerate and never hits)
+__device__ __forceinline__ void stage_tri(StagedTri& s, int* ends, const float (&v)[9]) {
+  s.a = make_float4(v[0], v[1], v[2], 0.0f);
+  s.e1 = make_float4(v[3] - v[0], v[4] - v[1], v[5] - v[2], 0.0f);
+  s.e2 = make_float4(v[6] - v[0], v[7] - v[1], v[8] - v[2], 0.0f);
+  bool real = false;
+#pragma unroll
+  for (int r = 0; r < 9; ++r) real = real || (v[r] != 0.0f);
+  put_end(ends, real);
+}
+
+// the staged triangles [0, end) of chunk c folded, ascending, into the ray's
+// best: mt_hit's expressions, in its order. The determinant, 1 / det and u
+// run for every triangle (1 / det given 1 where |det| < EPS, which rejects
+// the test: no slow path on a degenerate triangle); q, v and a only when
+// some ray of the warp has |det| >= EPS and u in [0, 1], since every other
+// test is rejected whatever they are.
+__device__ __forceinline__ void tri_fold(const StagedTri* s, int end, int c, V3 oi, V3 di,
+                                         float& abest, int& best, uint32_t& hits) {
+  for (int t = 0; t < end; ++t) {
+    const float4 A = s[t].a, e1 = s[t].e1, e2 = s[t].e2;
+    const float hx = di.y * e2.z - di.z * e2.y;
+    const float hy = di.z * e2.x - di.x * e2.z;
+    const float hz = di.x * e2.y - di.y * e2.x;
+    const float det = e1.x * hx + e1.y * hy + e1.z * hz;
+    const bool ok = fabsf(det) >= EPS;
+    const float invd = 1.0f / (ok ? det : 1.0f);
+    const V3 sv = {oi.x - A.x, oi.y - A.y, oi.z - A.z};
+    const float u = (sv.x * hx + sv.y * hy + sv.z * hz) * invd;
+    const bool pass = ok && (u >= 0.0f) && (u <= 1.0f);
+    if (!__any_sync(FULL, pass)) continue;
+    const float qx = sv.y * e1.z - sv.z * e1.y;
+    const float qy = sv.z * e1.x - sv.x * e1.z;
+    const float qz = sv.x * e1.y - sv.y * e1.x;
+    const float v = (di.x * qx + di.y * qy + di.z * qz) * invd;
+    const float a = (e2.x * qx + e2.y * qy + e2.z * qz) * invd;
+    if (pass && (v >= 0.0f) && (u + v <= 1.0f) && (a > EPS)) {
+      ++hits;
+      if (a < abest) {
+        abest = a;
+        best = c * CHUNK + t;
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(CHUNK)
     tri_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
                const float* __restrict__ tri, int ppad, float* a_out, int* row_out,
                unsigned long long* counts) {
-  __shared__ float s[9][CHUNK];
+  __shared__ StagedTri s[2][CHUNK];
+  __shared__ int ends[2][CHUNK / 32];
   const int ray = blockIdx.x * CHUNK + threadIdx.x;
   const V3 oi = ray_at(o, M, ray);
   const V3 di = ray_at(d, M, ray);
   float abest = FMAX;
   int best = -1;
   const int nchunks = ppad / CHUNK;
-  uint32_t hits = 0;
+  uint32_t tests = 0, hits = 0;
+  // chunk c + 1 is loaded into registers while chunk c is folded, and
+  // staged into the other buffer after it: one barrier a chunk
+  float v[9];
+  load_tri(tri, ppad, threadIdx.x, v);
+  stage_tri(s[0][threadIdx.x], ends[0], v);
   for (int c = 0; c < nchunks; ++c) {
-    __syncthreads();  // every thread is done with the previous chunk
-    stage_chunk(s, tri, ppad, c);
-    __syncthreads();
-    fold_chunk(s, c, oi, di, abest, best, hits);
+    __syncthreads();  // chunk c staged; every thread done with chunk c - 1
+    const int b = c & 1;
+    const int end = chunk_end(ends[b]);
+    const bool next = c + 1 < nchunks;
+    if (next) load_tri(tri, ppad, (c + 1) * CHUNK + threadIdx.x, v);
+    tests += end;
+    tri_fold(s[b], end, c, oi, di, abest, best, hits);
+    if (next) stage_tri(s[b ^ 1][threadIdx.x], ends[b ^ 1], v);
   }
   a_out[ray] = abest;
   row_out[ray] = abest < FMAX ? best : -1;
-  add_counts(counts, static_cast<uint32_t>(ppad), nchunks, hits);
+  add_counts(counts, tests, nchunks, hits);
 }
 
 // ---------------------------------------------------------------------------
@@ -533,6 +857,11 @@ struct AnLaunch {
 
 bool bad_rays(int M, int tile) { return M <= 0 || M % tile != 0; }
 
+template <int SHAPE>
+struct GroupKernel {
+  static const void* get() { return reinterpret_cast<const void*>(group_kernel<SHAPE>); }
+};
+
 }  // namespace
 
 // K3a. o, d: [3, M] f32 (M a multiple of 1024); inv, trf: [12, ppad] f32;
@@ -622,6 +951,39 @@ extern "C" int mesh_fold(const void* o, const void* d, int M, const void* tri, i
       static_cast<const float*>(tlo), S, static_cast<const float*>(bound), static_cast<float*>(a),
       static_cast<int*>(row), static_cast<unsigned long long*>(counts));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The compiled K3a (kernel 0, of a shape code) or K4a (kernel 1): out =
+// {registers a thread, local memory bytes a thread (spills), static shared
+// memory bytes a block, resident blocks per SM, threads a block}.
+extern "C" int brute_kernel_info(int kernel, int shape, int* out) {
+  const void* fn = nullptr;
+  if (kernel == 1) {
+    fn = reinterpret_cast<const void*>(tri_kernel);
+  } else if (kernel == 0) {
+    switch (shape) {
+      case SPHERE: fn = GroupKernel<SPHERE>::get(); break;
+      case CUBE: fn = GroupKernel<CUBE>::get(); break;
+      case CYLINDER: fn = GroupKernel<CYLINDER>::get(); break;
+      case CONE: fn = GroupKernel<CONE>::get(); break;
+      case QUAD: fn = GroupKernel<QUAD>::get(); break;
+      default: return cudaErrorInvalidValue;
+    }
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, CHUNK, 0);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = static_cast<int>(attr.sharedSizeBytes);
+  out[3] = blocks;
+  out[4] = CHUNK;
+  return cudaSuccess;
 }
 
 extern "C" const char* trace_error_string(int err) {

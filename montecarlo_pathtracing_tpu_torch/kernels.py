@@ -203,6 +203,9 @@ def _bind_trace_kernels(lib):
     for fn in (lib.group_best, lib.group_best_culled, lib.mesh_best,
                lib.mesh_best_culled, lib.an_fold, lib.mesh_fold):
         fn.restype = ctypes.c_int
+    # kernel (0 K3a, 1 K4a), shape, out [5] i32
+    lib.brute_kernel_info.argtypes = [i, i, p]
+    lib.brute_kernel_info.restype = ctypes.c_int
     lib.trace_error_string.argtypes = [ctypes.c_int]
     lib.trace_error_string.restype = ctypes.c_char_p
 

@@ -480,6 +480,20 @@ def mesh_best_rows(o, d, tri, cbb=None, sbb=None, work=None):
 mesh_best_rows.launches = 0
 
 
+def brute_kernel_info(kernel: str, shape_code: int = 1) -> dict:
+    """The compiled K3a (of `shape_code`) or K4a, from the CUDA runtime:
+    registers and local memory (spill) bytes a thread, static shared
+    memory a block, resident blocks per SM and threads a block. Needs the
+    card."""
+    lib = kernels.trace_kernels_lib()
+    out = (ctypes.c_int * 5)()
+    err = lib.brute_kernel_info({"K3a": 0, "K4a": 1}[kernel],
+                                int(shape_code), out)
+    raise_on_error(kernel, lib, err)
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "threads"), out))
+
+
 def mesh_best_rows_culled(o, d, tri, cbb, sbb=None, work=None):
     """K4b: `mesh_best_rows` with cbb [6, TRI_SUPER * nsuper] mesh-local
     leaf boxes of the instance's 128-triangle chunks (empty boxes past
