@@ -11,9 +11,10 @@ H100, the builds included):
    (csrc/bounce_kernel.cu, and its counting build for the work counters)
    and the trace kernels K3a, K3b, K4a, K4b, K5, K6
    (csrc/trace_kernels.cu), one nvcc each, started together, and print
-   the compile reports (registers, spills; each K2, K3a, K4a and K5
-   variant's on a line of its own), and, where the toolkit has cuobjdump,
-   the instructions of K3a's and K4a's fold loops in their SASS by class;
+   the compile reports (registers, spills; each K2, K3a, K3b, K4a, K5 and
+   K6 variant's on a line of its own), and, where the toolkit has
+   cuobjdump, the instructions of K3a's, K3b's, K4a's and K6's fold loops
+   in their SASS by class;
 2. K1 against its plain version (models/megakernel.mega_pass_reference)
    on the card, 64x48 pixels, 4 bounces, passes 0 and 3, under the
    megakernel protocol (testing/parity.py), on box_diffuse (cull off,
@@ -53,12 +54,13 @@ H100, the builds included):
    800x600 and K2 by shape over one recorded pass; a 1-pass accumulation
    at 200x150 against the plain version, with K2's time by shape, the
    plain version's and the bound on that pass;
-7. each trace kernel against its plain version on the card (K5 and K6
-   under the trace protocol, testing/parity.py; K3a, K3b, K4a and K4b rows
-   equal on 99.99% of rays, and distances, and K3a's a and dircode, bit
-   for bit where they are): K3a on a random 200-prim group and K3b
-   on a random 300-prim group with chunk boxes of each shape code (2048
-   rays); K5, K3a and K3b on colonnes' two large groups, K6, K4a and K4b
+7. each trace kernel against its plain version on the card (K5 under the
+   trace protocol, testing/parity.py; K3a, K3b, K4a, K4b and K6 rows equal
+   on 99.99% of rays, and distances or a, and K3a's a and dircode, bit
+   for bit where they are, printing the rows that differ): K3a on a
+   random 200-prim group and K3b on a random 300-prim group with chunk
+   boxes of each shape code (2048 rays); K5, K3a and K3b on colonnes' two
+   large groups, K6, K4a and K4b
    (the op mesh_best_rows with leaf and super boxes: K4b's path, which no
    render route reaches) on each mesh_demo instance (one 1<<17 ray tile
    each) and on mesh_hires's 796-chunk sphere (8192 rays; K4b also with
@@ -81,7 +83,10 @@ H100, the builds included):
    kernel's time per launch, per pass and by bounce (CUDA events, the
    card kept ahead of the host, the median of 3, with the SM clock and
    power; and host-paced, as before), its work counters and bound, and 8 of its full-size launches against the
-   plain version;
+   plain version; for K6, each launch's time beside the longest, 99th
+   percentile and mean chunks walked by a 128-ray tile and by a block of
+   this kernel, from a replay of the walk, and the kernel's registers,
+   blocks per SM and lanes a ray;
 10. one pass of each path at 800x600 with cull_chunks=False: K4a and K3a
    launch counts, the image against the culled route's under the fused
    protocol, and K4a's and K3a's times, bounds and plain versions as in
@@ -93,9 +98,13 @@ H100, the builds included):
    3 bounces, a 1-pass window: its 150,016-prim sphere group takes K3b
    (12 launches per pass), its cube group K5 (12); the host time of the
    build and the compile, the image, rays/s, one tile call's idle share,
-   K3b's time by launch, pass and bounce with its work and bound, 2
+   K3b's time by launch, pass and bounce with its work and bound (the
+   super boxes' tests, the chunk box tests in the supers a ray enters and
+   the prims of the chunks it enters, each within its final best), the
+   chunks entered by a warp of 32 rays gated as one, by a warp of this
+   kernel and by a ray on tile 0's launches (a replay of the walk), 2
    full-size K3b launches against the plain version and K3a, and K3b's
-   chunk-box scan alone (rays that enter no box);
+   box scan alone (rays that enter no box);
 12. the trace kernels built with FMA contraction (without kernels.
    EXTRA_FLAGS' -fmad=false) against the default build, on the recorded
    launches of phases 7 and 9-11: time per launch and the distances'
@@ -927,8 +936,8 @@ def _needed(kid, args, out):
     of that fold. Every culled fold and walk has one rule: a ray must
     fold the real prims or triangles of each chunk or block whose box it
     enters within its final best (K3b, K4b: _culled_needed; a culled fold
-    tests every ray against every real chunk box, K3b, or every super box
-    and, in the supers the ray enters so, every real leaf box, K4b) or its
+    tests every ray against every super box and, in the supers the ray
+    enters so, every real leaf box) or its
     final min(best, bound) (K5: the 8-prim blocks' boxes sup_bb; K6: the
     128-triangle chunks' boxes, the bounds of their real triangles). K3b's
     and K5's hits are counted once per ray with a winner, the least any
@@ -1014,8 +1023,24 @@ def _enters(o, rd, boxes, best, step=64):
     return torch.cat(cols, dim=1)
 
 
+def _group_super_boxes(cbb):
+    """K3b's super boxes, as its kernel builds them on the card
+    (super_of_chunks): box s the exact union of chunk boxes 16 s .. 16 s +
+    15 of cbb [6, n], the minimum of their minima and the maximum of their
+    maxima; [6, ceil(n / 16)]."""
+    pad = -cbb.shape[1] % ptk.GROUP_SUPER
+    lo = torch.nn.functional.pad(cbb[:3], (0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(cbb[3:], (0, pad), value=float("-inf"))
+    return torch.cat([lo.reshape(3, -1, ptk.GROUP_SUPER).amin(dim=2),
+                      hi.reshape(3, -1, ptk.GROUP_SUPER).amax(dim=2)])
+
+
 def _culled_needed(kid, args, out):
-    """_needed of K3b and K4b, from the launch's final best."""
+    """_needed of K3b and K4b, from the launch's final best. Both count
+    every super box's test, the leaf box tests of the supers a ray enters
+    within its final best, and the real items of the leaves it enters so
+    (K3b: supers of 16 chunks that its kernel builds, _group_super_boxes;
+    K4b: the instance's super boxes)."""
     o, d = args[0], args[1]
     rd = safe_rcp(d)
     best = out[0]
@@ -1023,9 +1048,17 @@ def _culled_needed(kid, args, out):
         pid, cbb = args[5], args[6]
         per_chunk = (pid[0] >= 0).reshape(-1, ptk.PRIM_CHUNK).sum(dim=1)
         real = per_chunk > 0
-        tests = (_enters(o, rd, cbb[:, real], best).to(torch.int64)
-                 * per_chunk[real][None, :]).sum()
-        return tests, (out[1] >= 0).sum(), o.shape[1] * real.sum()
+        sbb = _group_super_boxes(cbb)
+        sup = _enters(o, rd, sbb, best)                      # [M, nsuper]
+        leaf_sup = sup.repeat_interleave(ptk.GROUP_SUPER, dim=1)[
+            :, :cbb.shape[1]][:, real]
+        leaf = _enters(o, rd, cbb[:, real], best) & leaf_sup
+        tests = (leaf.to(torch.int64) * per_chunk[real][None, :]).sum()
+        real_sup = torch.nn.functional.pad(
+            real, (0, -real.numel() % ptk.GROUP_SUPER)).reshape(
+                -1, ptk.GROUP_SUPER).any(dim=1)
+        boxes = o.shape[1] * real_sup.sum() + leaf_sup.sum()
+        return tests, (out[1] >= 0).sum(), boxes
     tri, cbb, sbb = args[2:5]
     nreal = tri.shape[1] // ptk.PRIM_CHUNK
     per_chunk = (tri != 0).any(dim=0).reshape(nreal, ptk.PRIM_CHUNK).sum(dim=1)
@@ -1085,10 +1118,10 @@ def _time_recorded(kid, rec, reps=3, ahead=True, count=True):
 def _plain_vs_kernel(kid, rec, n=8, sub=None):
     """Kernel kid against its plain version on a subset of n recorded
     full-size launches (every k-th of the pass, or the launches `sub`):
-    K3a, K3b, K4a and K4b by _check_exact (rows equal on EXACT_ROWS of the
-    rays, distances bit-equal where they are, and K3a's a and dircode), K5
-    and K6 under the trace protocol, and each side's mean ms
-    per launch by CUDA events. Returns (plain ms, kernel ms on the same
+    K3a, K3b, K4a, K4b and K6 by _check_exact (rows equal on EXACT_ROWS of
+    the rays, distances or a bit-equal where they are, and K3a's a and
+    dircode), K5 under the trace protocol, and each side's mean ms per
+    launch by CUDA events. Returns (plain ms, kernel ms on the same
     launches, max abs error)."""
     if sub is None:
         sub = rec[::max(1, len(rec) // n)]
@@ -1105,7 +1138,7 @@ def _plain_vs_kernel(kid, rec, n=8, sub=None):
         kern_ms.append(e[0].elapsed_time(e[1]))
         plain_ms.append(e[2].elapsed_time(e[3]))
         what = f"{kid} full-size launch vs plain"
-        if kid in ("K3a", "K3b", "K4a", "K4b"):
+        if kid != "K5":
             err = max(err, _check_exact(what, ref, got, every=kid == "K3a"))
             continue
         ref2 = (ref[0].cpu().numpy(), ref[1].cpu().numpy())
@@ -1166,9 +1199,10 @@ def _instance_tris(dev, mi):
                         dev.tri_vc[off:off + cnt])
 
 
-# K3b and K4b against their plain versions: rows equal on this share of
-# rays at least, and distances bit for bit where rows are equal (the
-# trace kernels are built without FMA contraction, kernels.EXTRA_FLAGS)
+# the trace kernels but K5 against their plain versions: rows equal on
+# this share of rays at least, and distances bit for bit where rows are
+# equal (the trace kernels are built without FMA contraction,
+# kernels.EXTRA_FLAGS)
 EXACT_ROWS = 0.9999
 
 
@@ -1280,7 +1314,7 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
                 p4 = ptk.mesh_best_rows_plain(oi, di, tri)
                 tag = (f"{name} instance {mi} ({tri.shape[1] // 128} chunks "
                        f"under {cbb.shape[1]} leaf boxes, {m} rays)")
-                worst["K6"] = max(worst["K6"], _check_trace(
+                worst["K6"] = max(worst["K6"], _check_exact(
                     f"K6 {tag} vs plain", p6, k6))
                 worst["K4a"] = max(worst["K4a"], _check_exact(
                     f"K4a {tag} vs plain", p4, k4))
@@ -1391,14 +1425,16 @@ def _pass_stats(kid, r, rec, out=None):
     """Kernel kid over one recorded pass: printed ms per launch and pass,
     by bounce, its work and bound; returns (ms per launch, ms per pass,
     bound ms per launch, bound ms per pass, bounded by). When `out` is a
-    dict it gets the median SM clock while timed ("mhz") and the tests
-    needed per launch ("tests", those of the bound)."""
+    dict it gets the median SM clock while timed ("mhz"), the tests
+    needed per launch ("tests", those of the bound) and each launch's ms
+    ("launch_ms")."""
     clk = {}
     with clocks(f"{kid} timed alone", out=clk):
         ms, work, needed, late = _time_recorded(kid, rec)
     if out is not None:
         out.update(mhz=clk.get("mhz", float("nan")),
-                   tests=float(needed[:, 0].astype(np.float64).mean()))
+                   tests=float(needed[:, 0].astype(np.float64).mean()),
+                   launch_ms=ms)
     paced = _time_recorded(kid, rec, reps=1, ahead=False, count=False)
     ops = sum(_needed_ops(kid, args, int(n[0]), int(n[1]), int(n[2]))
               for n, (_, args, _) in zip(needed, rec))
@@ -1426,6 +1462,142 @@ def _pass_stats(kid, r, rec, out=None):
         f"{b}: {t:.4f}" for b, t in enumerate(by_bounce)), flush=True)
     return (float(ms.mean()), float(ms.sum()), bound_pass / len(rec),
             bound_pass, bound_by)
+
+
+def _k6_walks(args, lanes):
+    """How many chunks each walking unit of one K6 launch (its recorded
+    args) walks: a 128-ray tile under the prune over all its rays
+    (mesh_fold_plain's walk, and a block of the one-thread-a-ray walk),
+    and each of a tile's `lanes` blocks of 128 / lanes rays in this
+    kernel, under the prune over its own rays.
+    One replay of the tile walk on the card gives both: a chunk that the
+    prune drops holds no hit closer than a ray's best, so at every chunk a
+    block walks its rays hold the tile walk's best. Returns (walks per
+    tile, walks per block), int64 tensors."""
+    o, d, tri, order, tlo_sorted, bound = args[:6]
+    nt, s = order.shape
+    tile = spk.MESH_TILE
+    shp = (nt, tile)
+    oc = tuple(o[c].reshape(shp)[:, :, None] for c in range(3))
+    dc = tuple(d[c].reshape(shp)[:, :, None] for c in range(3))
+    bnd = bound.reshape(shp)
+    a_best = torch.full(shp, float(ptk._FMAX), device=o.device)
+    chunks = tri.reshape(9, -1, ptk.PRIM_CHUNK)
+    on = torch.ones((nt, 1 + lanes), dtype=torch.bool, device=o.device)
+    walks = torch.zeros((nt, 1 + lanes), dtype=torch.int64, device=o.device)
+    for k in range(s):
+        tlo = tlo_sorted[:, k:k + 1]
+        cap = torch.minimum(a_best, bnd)
+        caps = torch.cat([cap.amax(dim=1, keepdim=True),
+                          cap.reshape(nt, lanes, -1).amax(dim=2)], dim=1)
+        on &= (tlo < spk.INF) & (tlo < caps)
+        walks += on
+        t = torch.nonzero(on[:, 0]).squeeze(1)
+        if t.numel() == 0:
+            break
+        bid = order[t, k].long()
+        v = [chunks[r][bid][:, None, :] for r in range(9)]
+        a = ptk.mt_chunk(tuple(x[t] for x in oc), tuple(x[t] for x in dc), v)
+        a_best[t] = torch.minimum(a_best[t], a.amin(dim=2))
+    return walks[:, 0], walks[:, 1:].reshape(-1)
+
+
+def _k3b_walks(args, lanes):
+    """How many chunks the warps of one K3b launch (its recorded args)
+    enter: a warp of 32 rays gated as one (the one-thread-a-ray fold)
+    folds every chunk whose box some ray of it enters within its best; in
+    this kernel each ray walks the chunks whose box it enters within its
+    best, and a warp of 32 / lanes rays folds one chunk a ray at each
+    step, taking at least as many steps as its busiest ray. Replays the
+    per-ray walk on the card in ascending chunk order: a chunk that a ray
+    skips holds no hit closer than its best, so the best every gate reads
+    is the brute fold's so far. Returns (chunks entered by each warp of 32
+    rays gated as one, by each warp of this kernel, by each ray), int64
+    tensors."""
+    o, d, code, inv_r, trf_r, pid, cbb = args[:7]
+    fn = SOA_FNS[code]
+    m = o.shape[1]
+    rd = safe_rcp(d)
+    bd = torch.full((m,), float(ptk._FMAX), device=o.device)
+    per_ray = torch.zeros((m,), dtype=torch.int64, device=o.device)
+    old = torch.zeros((m // 32,), dtype=torch.int64, device=o.device)
+    new = torch.zeros((m * lanes // 32,), dtype=torch.int64, device=o.device)
+    for c in range(inv_r.shape[1] // ptk.PRIM_CHUNK):
+        enter = ptk._slab_enters(o, rd, cbb[:, c], bd)
+        old += enter.reshape(-1, 32).any(dim=1)
+        new += enter.reshape(-1, 32 // lanes).any(dim=1)
+        per_ray += enter
+        rays = torch.nonzero(enter).squeeze(1)
+        if rays.numel():
+            cmin = ptk._group_chunk(fn, o[:, rays], d[:, rays], inv_r, trf_r,
+                                    pid, c)[0]
+            bd[rays] = torch.minimum(bd[rays], cmin)
+    return old, new, per_ray
+
+
+def _info_line(kid, info):
+    """ptk.trace_kernel_info's numbers of kernel kid on one line."""
+    return (f"{kid} compiled: {info['registers']} registers, "
+            f"{info['local_bytes']} bytes of spills, {info['shared_bytes']} "
+            f"bytes shared, {info['blocks_per_sm']} blocks of "
+            f"{info['threads']} threads per SM, {info['lanes']} lanes a ray")
+
+
+def _walk_line(walks):
+    """'longest/p99/mean' of int64 walk lengths."""
+    w = walks.double()
+    return (f"{int(w.max())}/{float(torch.quantile(w, 0.99)):.0f}/"
+            f"{float(w.mean()):.3f}")
+
+
+def _k6_walk_stats(rec, ms, r):
+    """Per launch of K6's recorded pass: its ms (kept ahead) beside the
+    longest, 99th-percentile and mean walk of the 128-ray tiles and of
+    this kernel's blocks (_k6_walks), one line per bounce; and their sums
+    over the pass."""
+    info = ptk.trace_kernel_info("K6")
+    lanes = info["lanes"]
+    print(_info_line("K6", info), flush=True)
+    per_bounce = len(rec) // (r._ntiles * r.config.nb_bounces)
+    lines = [[] for _ in range(r.config.nb_bounces)]
+    tiles, blocks, longest = [], [], []
+    for i, (_, args, _) in enumerate(rec):
+        t, b = _k6_walks(args, lanes)
+        tiles.append(t)
+        blocks.append(b)
+        longest.append((float(ms[i]), int(t.max()), int(b.max())))
+        lines[(i // per_bounce) % r.config.nb_bounces].append(
+            f"{ms[i]:.4f} {_walk_line(t)} {_walk_line(b)}")
+    for bounce, line in enumerate(lines):
+        print(f"K6 walks, bounce {bounce}, per launch (ms; chunks walked by "
+              f"a tile, by a block of {spk.MESH_TILE // lanes} rays: "
+              f"longest/p99/mean): " + ", ".join(line), flush=True)
+    t, b = torch.cat(tiles), torch.cat(blocks)
+    x = np.array(longest)
+    print(f"K6 walks over the pass: tiles {_walk_line(t)} ({int(t.sum())} "
+          f"chunks), blocks of {spk.MESH_TILE // lanes} rays {_walk_line(b)}"
+          f" ({int(b.sum())} chunks); correlation over launches of ms with "
+          f"the longest tile walk {np.corrcoef(x[:, 0], x[:, 1])[0, 1]:.3f}, "
+          f"with the longest block walk "
+          f"{np.corrcoef(x[:, 0], x[:, 2])[0, 1]:.3f}", flush=True)
+
+
+def _k3b_walk_stats(rec, ms, launches):
+    """K3b's walks (_k3b_walks) on the recorded launches `launches` (index
+    into rec, with its bounce): per launch its ms (kept ahead), the
+    longest, 99th-percentile and mean chunks entered by a warp of 32 rays
+    gated as one, by a warp of this kernel and by a ray."""
+    info = ptk.trace_kernel_info("K3b", int(rec[0][1][2]))
+    lanes = info["lanes"]
+    print(_info_line("K3b", info), flush=True)
+    for i, bounce in launches:
+        old, new, per_ray = _k3b_walks(rec[i][1], lanes)
+        print(f"K3b walks, launch {i} (bounce {bounce}, {ms[i]:.4f} ms): "
+              f"chunks entered, longest/p99/mean: by a warp of 32 rays "
+              f"gated as one {_walk_line(old)}, by a warp of this kernel "
+              f"({32 // lanes} rays of {lanes} lanes) "
+              f"{_walk_line(new)}, by a ray {_walk_line(per_ray)} "
+              f"({int(per_ray.sum())} in all)", flush=True)
 
 
 def _tile_call(r, t, pass_index):
@@ -1498,8 +1670,11 @@ def phase_trace_path(device, name, light, ior, kid, w, h, bounces, window,
     tile_wall, tile_busy = _tile_idle(r, kid)
 
     rec = rec[:per_pass]                    # the window's first pass
+    extra = {}
     ms_launch, ms_pass, bound_launch, bound_pass, bound_by = _pass_stats(
-        kid, r, rec)
+        kid, r, rec, out=extra)
+    if kid == "K6":
+        _k6_walk_stats(rec, extra["launch_ms"], r)
     plain_ms, kern_ms, err = _plain_vs_kernel(kid, rec)
     return dict(launches=counts[kid], rays_per_s=rays_per_s,
                 window_s=window_s, wall_pass_ms=wall_pass * 1e3,
@@ -1556,7 +1731,7 @@ def _brute_stats(kid, dev, ms, bound_ms, extra):
     is one instruction), tests per launch, lane-cycles per test at the SM
     clock read while it was timed (SMs x 128 FP32 lanes), and the
     compiled kernel's registers, spills and resident blocks per SM
-    (ptk.brute_kernel_info; K3a for each of the scene's large groups'
+    (ptk.trace_kernel_info; K3a for each of the scene's large groups'
     shape codes)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     tests = extra["tests"]
@@ -1569,7 +1744,7 @@ def _brute_stats(kid, dev, ms, bound_ms, extra):
         + "{registers} registers, {local_bytes} bytes of spills, "
         "{shared_bytes} bytes shared, {blocks_per_sm} blocks of {threads} "
         "threads per SM".format(
-            **ptk.brute_kernel_info(kid, c or 1)) for c in codes)
+            **ptk.trace_kernel_info(kid, c or 1)) for c in codes)
     print(f"{kid} brute: {ms:.4f} ms per launch against a bound of "
           f"{bound_ms:.4f} ms and an FMA-free ceiling of {2 * bound_ms:.4f} "
           f"ms; {tests:.6g} tests per launch, {cycles:.1f} lane-cycles per "
@@ -1662,8 +1837,12 @@ def phase_large_scene(device, n_prims=200_000, w=800, h=600, bounces=3,
           f"launches {counts}, image mean {img.mean():.5f}, "
           f"{rays_per_s:.6g} rays/s", flush=True)
     tile_wall, tile_busy = _tile_idle(r, "K3b")
+    extra = {}
     ms_launch, ms_pass, bound_launch, bound_pass, bound_by = _pass_stats(
-        "K3b", r, rec[:r._ntiles * bounces])   # the window's first pass
+        "K3b", r, rec[:r._ntiles * bounces], out=extra)  # the first pass
+    # tile 0's launches, one per bounce
+    _k3b_walk_stats(rec, extra["launch_ms"],
+                    [(b, b) for b in range(bounces)])
     # tile 0's primaries and tile 1's first bounce
     sub = [rec[0], rec[bounces + 1]][:n_plain]
     plain_ms, _, err = _plain_vs_kernel("K3b", rec, sub=sub)
@@ -1760,9 +1939,11 @@ _SASS_CLASSES = (("FP32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL",
 
 def _fold_loop(ins):
     """ins [(address, opcode, operands)] of one function: its fold loop,
-    the innermost backward branch whose body holds a VOTE.ANY, split at
-    the vote into the instructions every test runs and the gated rest,
-    each counted by class; None where there is no such loop."""
+    one test a trip: of the backward branches whose body holds a VOTE.ANY
+    (the gate on a test's rest) and a MUFU (a test's reciprocal or square
+    root), the one with the fewest votes, then the shortest; split at the
+    vote into the instructions every test runs and the gated rest, each
+    counted by class. None where there is no such loop."""
     loops = []
     for i, (_, op, rest) in enumerate(ins):
         m = re.search(r"0x([0-9a-f]+)", rest)
@@ -1770,12 +1951,14 @@ def _fold_loop(ins):
             continue
         lo = next((k for k, (a, _, _) in enumerate(ins)
                    if a == int(m.group(1), 16)), None)
-        if lo is not None and lo < i and any(
-                o.startswith("VOTE.ANY") for _, o, _ in ins[lo:i]):
-            loops.append((i - lo, lo, i))
+        if lo is None or lo >= i:
+            continue
+        votes = sum(o.startswith("VOTE.ANY") for _, o, _ in ins[lo:i])
+        if votes and any(o.startswith("MUFU") for _, o, _ in ins[lo:i]):
+            loops.append((votes, i - lo, lo, i))
     if not loops:
         return None
-    _, lo, hi = min(loops)
+    _, _, lo, hi = min(loops)
     body = [op for _, op, _ in ins[lo:hi + 1]]
     vote = next(k for k, op in enumerate(body) if op.startswith("VOTE"))
     parts = {}
@@ -1788,9 +1971,11 @@ def _fold_loop(ins):
 
 
 def print_fold_sass():
-    """The fold loops of K3a (group_kernel, by shape code) and K4a
-    (tri_kernel) in the SASS of the loaded trace kernels (cuobjdump beside
-    nvcc; nothing where the toolkit lacks it), one line each."""
+    """The fold loops of K3a (group_kernel) and K3b (group_culled_kernel,
+    and group_tile_kernel for cones and quads), by shape code, and of K4a
+    (tri_kernel) and K6 (mesh_walk) in the SASS of the loaded trace
+    kernels (cuobjdump beside nvcc; nothing where the toolkit lacks it),
+    one line each."""
     tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         print("cuobjdump not found: SASS not read", flush=True)
@@ -1800,7 +1985,8 @@ def print_fold_sass():
                           capture_output=True, text=True, check=True).stdout
     funcs, ins = {}, None
     for line in sass.splitlines():
-        m = re.search(r"Function : \S*(group_kernel|tri_kernel)(?:ILi(\d))?",
+        m = re.search(r"Function : \S*(group_kernel|group_culled_kernel|"
+                      r"group_tile_kernel|tri_kernel|mesh_walk)(?:ILi(\d))?",
                       line)
         if m:
             ins = funcs.setdefault(
@@ -1846,7 +2032,8 @@ def main() -> int:
     print(kernels.build_log("bounce_kernel").strip(), flush=True)
     print(kernels.build_log("trace_kernels").strip(), flush=True)
     print_registers(kernels.build_log("bounce_kernel"), "fused_kernel")
-    for kernel in ("an_walk", "group_kernel", "tri_kernel"):
+    for kernel in ("an_walk", "group_kernel", "group_culled_kernel",
+                   "group_tile_kernel", "tri_kernel", "mesh_walk"):
         print_registers(kernels.build_log("trace_kernels"), kernel)
     print_fold_sass()
 

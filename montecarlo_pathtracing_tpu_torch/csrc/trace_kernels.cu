@@ -10,7 +10,8 @@
 //     every prim of a homogeneous group; (dist, group row, local a, dircode).
 // K3b group_culled_kernel replaces ops/pallas_trace.py:251
 //     (_group_kernel_culled, launched by group_best_rows with chunk boxes):
-//     K3a behind a slab test of each 128-prim chunk's world box.
+//     K3a behind a slab test of each 128-prim chunk's world box (and of
+//     supers of 16 chunks).
 // K4a tri_kernel replaces ops/pallas_trace.py:497 (_tri_kernel, launched by
 //     mesh_best_rows): Moller-Trumbore of mesh-local unit rays against every
 //     128-triangle chunk, folded on the local parameter a; (a, row).
@@ -26,18 +27,21 @@
 // Their plain PyTorch versions are the *_plain functions beside the
 // wrappers; chip_smoke.py holds each kernel against its plain version.
 //
-// Design. One thread per ray, its best hit in registers. Folds run in
-// ascending prim or triangle order with a strict `<`: the TPU kernels'
-// first minimum inside a chunk followed by a strictly-closer merge across
-// chunks (pallas_trace.py:204-224) is exactly that scan, so the winners,
-// ties included, are the TPU kernels', and every output equals the plain
-// versions' bit for bit. Padding prims (scene id < 0 in K3a and K3b, ok
-// flag 0 in K5) never win; padding triangles are degenerate. K3b reads the
-// group's table columns with __ldg, the same column by every thread of a
-// warp: one broadcast each. K4b and K6 stage each chunk's [9, 128] corner
-// rows (4.6 KB) in shared memory, one column per thread, and every thread
-// then tests the chunk's triangles from there. K5 reads an 8-prim block's
-// [25, 8] table (inverse rows, forward rows, ok flag) as warp-wide
+// Design. One thread per ray in K3a, K4a, K4b and K5, L lanes per ray in
+// K3b and K6; a ray's best hit in registers. Folds run in ascending prim
+// or triangle order with a strict `<`: the TPU kernels' first minimum
+// inside a chunk followed by a strictly-closer merge across chunks
+// (pallas_trace.py:204-224) is exactly that scan, so the winners, ties
+// included, are the TPU kernels', and every output equals the plain
+// versions' bit for bit. With L lanes a ray, lane j folds items j, j + L,
+// ... of a chunk so, and the lanes reduce (distance or a, row) to its
+// lexicographic minimum, the lowest row on an equal key (lane_min): the
+// first minimum of the chunk's ascending scan, merged strictly closer.
+// Padding prims (scene id < 0 in K3a and K3b, ok flag 0 in K5) never win;
+// padding triangles are degenerate. K4b stages each chunk's [9, 128]
+// corner rows (4.6 KB) in shared memory, one column per thread, and every
+// thread then tests the chunk's triangles from there. K5 reads an 8-prim
+// block's [25, 8] table (inverse rows, forward rows, ok flag) as warp-wide
 // broadcasts (see "The walks").
 //
 // The brute folds (K3a, K4a) are bound by the instructions they issue:
@@ -73,74 +77,119 @@
 //   itself compiles to about the same branches as common.cuh's tests: the
 //   masked arguments are K3a's gain there.
 //
-// The culled folds (K3b, K4b). Before a chunk each ray tests the chunk's
-// box against its running best (the reference's slab test, with
+// The culled folds (K3b, K4b). Before a chunk, rays test the chunk's box
+// against their running best (the reference's slab test, with
 // ops/vec.safe_rcp's reciprocals: a zero component gives a huge finite
 // value, never inf * 0). The TPU skipped a chunk when no ray of its
-// 1024-ray tile passed; the cull is conservative (a hit inside a box lies
-// no nearer than the box's entry), so any subset of a tile's rays, down to
-// one, may skip a chunk that none of its rays passes, and the winners stay
-// the brute fold's. K3b gates per warp (__any_sync): its prims are read as
-// warp-wide broadcasts, so a warp is the finest unit that runs a chunk
-// together, and it needs no barrier. Gating each ray alone would save no
-// time (a lane that skips idles while its warp runs the chunk for the
-// others); gating the 128-ray block would add a barrier per chunk (1,172 on
-// a 150k-prim group) and run chunks for four warps that one of them needs.
-// K4b gates per block (__syncthreads_or), since its block stages a chunk's
-// triangles in shared memory together; the barrier is the one staging
-// needs anyway. Its padding leaves (past the last real chunk, empty boxes)
-// are skipped and never read; the reference clamped their data index to
-// the last real chunk instead (pallas_trace.py:580-590). Box columns are
-// read with __ldg, the same column by every thread: uniform broadcasts
-// from L1 (1,172 K3b boxes are 28 KB).
+// 1024-ray tile passed. Where every hit lies in front of the ray's origin
+// (t > EPS: spheres, cubes, cylinders, triangles) the cull is
+// conservative: a hit inside a box lies no nearer than the ray's entry
+// into it, so any subset of a tile's rays, down to one, may skip a chunk
+// that none of its rays enters, and the winners stay the brute fold's.
+// Cones and quads take hits behind the origin (their tests have no t > EPS
+// check), which a skipped chunk may hold, so their winners depend on which
+// rays decide together: K3b decides for them per 1024-ray tile, as the
+// plain version and the TPU kernel do (group_tile_kernel: K3a's staged
+// fold behind a gate of the whole block, a tile a block, a ray a thread).
 //
-// The walks (K5, K6). A K6 block walks its tile's ranked list (order[t],
-// tlo[t], ascending entry bound) front to back in one launch; before each
-// chunk it asks with __syncthreads_or whether any of its rays still has
-// tlo < min(best, bound), the prune of sparse_trace.py:401-403, and ends the
-// walk at the first that none has. In K5 each warp walks its tile's list on
-// its own, with no block barrier: it takes the prune over its own 32 rays
-// (__any_sync), then tests the block's box (sup_bb) per ray within min(best,
-// bound), K3b's slab test, and skips the block when none of its rays enters
-// it (a lane that does not enter idles while the others test). The TPU took
-// the prune over the whole 1024-ray tile, and both the prune and the gate
-// are sound over any subset of a tile's rays, down to one: tlo lower-bounds
-// every ray of the tile's entry into the box (the bundle holds them all), a
-// hit inside a box lies no nearer than the ray's entry into it, and bound
-// caps every hit inside the root box, so a block skipped for ray r holds no
-// hit strictly closer than r's best. The list is sorted and best only
-// shrinks, so nothing later passes the prune either. Winners equal the brute
-// fold's; on an exact distance tie between two blocks the ranked order
-// decides, as it does on the TPU. K5's plain version keeps the tile-wide
-// prune alone. K5 reads each prim's 25 rows with __ldg, the same address for
-// the warp's 32 lanes: one broadcast from L1 each, issued together for the
-// block's 8 prims, so no step waits on a staging barrier. Staging each
-// block's table per warp in shared memory, with the next ranked block's
-// loads in flight, measured slower on an H100 (PERF.md), so the table is
-// read as broadcasts. "Blocks visited" (counter [1]) counts, per
-// warp, the blocks it entered. The TPU's repeated calls over a budgeted
-// worklist, carrying the best in and out (ain/rin), are not needed: the
-// whole list is walked in one launch.
+// K3b on the other shapes (group_culled_kernel) gated per warp of 32 rays,
+// one thread a ray reading each prim's 24 table values as serial
+// broadcasts, so a warp folded every chunk any of its rays entered: on
+// scene_stress(200_000)'s 1,172 chunks a warp entered up to 95 while the
+// mean was 3 (chip_smoke.py phase 11 replays the walks), and those warps
+// set the launch's time. It now gives each ray 16 lanes and gates each ray
+// on its own best. Lane j tests box g + j of 16 at once (a super box, then
+// in each super the ray enters its 16 chunk boxes); the ray walks the
+// boxes it entered ascending, each gate re-read against the best the walk
+// has reached; in an entered chunk lane j folds prims j, j + 16, ... with
+// K3a's masked shape tests, so that the 16 lanes read 16 neighbouring
+// columns of each [12, ppad] row together. The ray groups of a warp walk
+// their own chunks at once. A super is the exact union of 16 chunk boxes,
+// built on the card at each launch (super_of_chunks); it cuts the box
+// tests, 131,072 rays x 1,172 boxes a launch there, about elevenfold. A
+// lane whose ray walks nothing at a step, and a prim with scene id < 0,
+// test an identity frame and drop the result: no lane of the warp takes an
+// IEEE slow path on a NaN or a zero. K4b gates per block
+// (__syncthreads_or), since its block stages a chunk's triangles in shared
+// memory together; the barrier is the one staging needs anyway. Its
+// padding leaves (past the last real chunk, empty boxes) are skipped and
+// never read; the reference clamped their data index to the last real
+// chunk instead (pallas_trace.py:580-590).
+//
+// The walks (K5, K6). A tile's ranked list (order[t], tlo[t], ascending
+// entry bound) is walked front to back in one launch; before each block or
+// chunk the walking rays ask whether any of them still has tlo < min(best,
+// bound), the prune of sparse_trace.py:401-403, and end the walk at the
+// first that none has. The TPU took the prune over the whole tile, and the
+// prune is sound over any subset of a tile's rays, down to one: tlo
+// lower-bounds every ray of the tile's entry into the box (the bundle
+// holds them all), a hit inside a box lies no nearer than the ray's entry
+// into it, and bound caps every hit inside the root box, so a block
+// skipped for ray r holds no hit strictly closer than r's best. The list
+// is sorted and best only shrinks, so nothing later passes the prune
+// either. Winners equal the brute fold's; on an exact distance tie between
+// two blocks the ranked order decides, as it does on the TPU.
+// - K5: each warp walks its 1024-ray tile's list on its own, with no block
+//   barrier: it takes the prune over its own 32 rays (__any_sync), then
+//   tests the block's box (sup_bb) per ray within min(best, bound), K3b's
+//   slab test, and skips the block when none of its rays enters it (a lane
+//   that does not enter idles while the others test). That per-ray gate
+//   rests on hits lying in front of the origin; for cones and quads it
+//   holds up to the trace protocol, to which chip_smoke.py holds K5. K5's
+//   plain version keeps the tile-wide prune alone. K5 reads each prim's 25
+//   rows with __ldg, the same address for the warp's 32 lanes: one
+//   broadcast from L1 each, issued together for the block's 8 prims, so no
+//   step waits on a staging barrier. Staging each block's table per warp in
+//   shared memory, with the next ranked block's loads in flight, measured
+//   slower on an H100 (PERF.md). "Blocks visited" (counter [1]) counts,
+//   per warp, the blocks it entered.
+// - K6 walked a 128-ray tile a block, one thread a ray folding all 128
+//   triangles of a chunk, so the launch waited on its few tiles that
+//   walked up to the instance's whole list (mesh_demo: 18 chunks; the
+//   launch times follow the longest walk, chip_smoke.py phase 9). It now
+//   gives each ray 8 lanes: a block holds 16 rays of a tile, and the
+//   tile's 8 blocks each walk its list with their own prune. A chunk is
+//   staged as K4a stages it (the corner and the edges, with the next
+//   ranked chunk loaded while this one is folded, before its prune: a load
+//   the prune then drops costs bandwidth only; one barrier a chunk), and
+//   lane j folds triangles j, j + 8, ... with K4a's test. The block also
+//   stages the chunk's box, the union of its real triangles' corners: a
+//   warp folds the chunk only when one of its 4 rays enters that box
+//   within min(best, bound), less the entry bounds' margin, so that the
+//   prune keeps the block walking for its other rays at the cost of
+//   staging alone.
+// - Lanes a ray, measured on an H100 from 4, 8 and 16 with the rest of the
+//   design as above (PERF.md): K3b is fastest at 16, K6 at 8; at 16, K6's
+//   blocks double, and with them the part of its floor they cost.
+// The TPU's repeated calls over a budgeted worklist, carrying the best in
+// and out (ain/rin), are not needed: the whole list is walked in one
+// launch.
 //
 // What bounds them on this card: FP32 operations. A ray-prim test is 47-86
 // FP32 operations (the local frame 42, the shape test 5-44), and 33 more for
 // the world hit point and distance where the shape test passes; a
 // ray-triangle test is 51 (20 where the determinant rejects it); a slab
 // test about 24. The bytes are few: rays in, winners out, chunk boxes,
-// tables read from L1 and L2 (a group's [25, P] table is 52 KB at 512 prims;
-// mesh_demo's largest instance is 83 KB of corners). What keeps them from
-// that bound: the IEEE divisions' and square roots' extra instructions, the
-// brute kernels' tests of prims a ray can never hit, and in the walks the
-// chunks a block visits for its few rays that still need them.
+// tables read from L1 and L2 (a group's [25, P] table is 52 KB at 512
+// prims, a 150,016-prim group's [12, P] rows 14.4 MB; mesh_demo's largest
+// instance is 83 KB of corners). What keeps them from that bound: the IEEE
+// divisions' and square roots' extra instructions, no FMA (below), the
+// brute kernels' tests of prims a ray can never hit, in K3b and K6 the
+// lanes whose ray needs nothing at a step, and in K6 a floor of about 0.011
+// ms a launch on an H100 where no block walks (the blocks' loads of their
+// rays, one barrier, the stores).
 //
 // Work counters, when `counts` is set: [0] ray-prim or ray-triangle tests
-// done (K3a and K4a: every ray against each chunk's items up to its end,
-// so a prim with scene id < 0 before a chunk's last real prim counts
-// too), [1] 128-prim chunks (K3a) or chunks (K4a, K6) that blocks visited,
-// 8-prim blocks that warps entered (K5), or chunks that warps (K3b) or
-// blocks (K4b) entered,
-// [2] tests that hit (the shape test passed, or the triangle was hit); K3b
-// and K4b add [3] ray-box tests and K4b [4] supers that blocks entered.
+// done, over a ray's lanes (K3a, K4a, K6 and K3b's cones and quads: every
+// ray against each chunk's items up to its end, so a prim with scene id <
+// 0 before a chunk's last real prim counts too; K6 only where the ray's
+// warp folds the chunk; K3b's other shapes: the real prims of the chunks
+// the ray walks), [1] 128-prim chunks (K3a) or chunks (K4a, K6) that
+// blocks visited, 8-prim blocks that warps entered (K5), (ray, chunk)
+// pairs folded (K3b), or leaf chunks that blocks entered (K4b), [2] tests
+// that hit (the shape test passed, or the triangle was hit); K3b and K4b
+// add [3] ray-box tests (K3b: super and chunk boxes, over a ray's lanes)
+// and K4b [4] supers that blocks entered.
 //
 // Floating point is IEEE, without --use_fast_math (see common.cuh), and this
 // file is built without FMA contraction (-fmad=false, kernels.EXTRA_FLAGS):
@@ -164,7 +213,14 @@ constexpr int AN_TILE = 1024;   // rays per K5 tile
 constexpr int AN_BLOCK = 256;   // rays per K5 thread block (a quarter tile)
 constexpr int MESH_TILE = 128;  // rays per K6 tile and thread block
 constexpr float INF = 3e38f;    // entry bound of an unreachable block
+// the downward margin of the entry bounds (ops/sparse_trace.py _TLO_SCALE,
+// _TLO_MARGIN), which K6 gives its per-ray chunk box test too
+constexpr float TLO_SCALE = 1.0f - 1e-4f;
+constexpr float TLO_MARGIN = 1e-4f;
 constexpr int TRI_SUPER = 16;   // leaf chunks per K4b super
+constexpr int WALK_LANES = 8;   // lanes per ray in K6
+constexpr int CULL_LANES = 16;  // lanes per ray in K3b
+constexpr int GROUP_SUPER = 16; // chunks per K3b super box
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ V3 ray_at(const float* r, int M, int i) {
@@ -187,6 +243,49 @@ __device__ __forceinline__ void add_counts(unsigned long long* counts, uint32_t 
   if (threadIdx.x == 0) atomicAdd(counts + 1, static_cast<unsigned long long>(visits));
 }
 
+// the bits of the thread's L-lane group (lanes L * k .. L * k + L - 1 of
+// its warp) in a warp-wide ballot, lane by lane
+template <int L>
+__device__ __forceinline__ unsigned group_bits(unsigned ballot) {
+  static_assert(L > 0 && L < 32 && 32 % L == 0, "a lane group divides a warp");
+  return (ballot >> ((threadIdx.x % 32) & ~(L - 1))) & ((1u << L) - 1u);
+}
+
+// (key, row) reduced over the thread's L-lane group to its lexicographic
+// minimum, the lowest row on an equal key: with each lane holding the first
+// minimum of its ascending subset, that is the first minimum of the group's
+// ascending scan. Every lane of the group gets it.
+template <int L>
+__device__ __forceinline__ void lane_min(float& key, int& row) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off /= 2) {
+    const float k2 = __shfl_xor_sync(FULL, key, off);
+    const int r2 = __shfl_xor_sync(FULL, row, off);
+    if (k2 < key || (k2 == key && r2 < row)) {
+      key = k2;
+      row = r2;
+    }
+  }
+}
+
+// the same, carrying the winner's local a and dircode
+template <int L>
+__device__ __forceinline__ void lane_min(float& key, int& row, float& a, int& code) {
+#pragma unroll
+  for (int off = L / 2; off > 0; off /= 2) {
+    const float k2 = __shfl_xor_sync(FULL, key, off);
+    const int r2 = __shfl_xor_sync(FULL, row, off);
+    const float a2 = __shfl_xor_sync(FULL, a, off);
+    const int c2 = __shfl_xor_sync(FULL, code, off);
+    if (k2 < key || (k2 == key && r2 < row)) {
+      key = k2;
+      row = r2;
+      a = a2;
+      code = c2;
+    }
+  }
+}
+
 // one ray against one prim of a group: world distance and local hit (a,
 // code), false where the shape test fails
 template <int SHAPE>
@@ -199,35 +298,6 @@ __device__ __forceinline__ bool prim_hit(const float* iv, const float* tf, V3 o,
   const V3 e = sub(o, affine(tf, pl));
   dist = sqrtf(e.x * e.x + e.y * e.y + e.z * e.z);
   return true;
-}
-
-// prims [begin, end) of a group's [12, ppad] tables, ascending, folded into
-// the best (bd, brow, ba, bdir) under the strictly-closer rule
-template <int SHAPE>
-__device__ __forceinline__ void fold_prims(const float* __restrict__ inv,
-                                           const float* __restrict__ trf,
-                                           const int* __restrict__ pid, int ppad, int begin,
-                                           int end, V3 ro, V3 rd, float& bd, int& brow, float& ba,
-                                           int& bdir, uint32_t& tests, uint32_t& hits) {
-  for (int c = begin; c < end; ++c) {
-    if (__ldg(pid + c) < 0) continue;  // group padding never hits
-    ++tests;
-    float iv[12], tf[12];
-#pragma unroll
-    for (int r = 0; r < 12; ++r) iv[r] = ld(inv, r, ppad, c);
-#pragma unroll
-    for (int r = 0; r < 12; ++r) tf[r] = ld(trf, r, ppad, c);
-    float dist, a;
-    int code;
-    if (!prim_hit<SHAPE>(iv, tf, ro, rd, dist, a, code)) continue;
-    ++hits;
-    if (dist < bd) {
-      bd = dist;
-      brow = c;
-      ba = a;
-      bdir = code;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -471,18 +541,203 @@ __global__ void __launch_bounds__(CHUNK)
 }
 
 // ---------------------------------------------------------------------------
-// K3b: K3a, a warp entering a 128-prim chunk only if one of its rays
-// enters the chunk's box no farther than its best
+// K3b: K3a behind a test of each 128-prim chunk's box: per ray, L lanes a
+// ray, where the shape takes only hits in front of the ray's origin; per
+// 1024-ray tile, one ray a thread, where it takes hits behind it
 // ---------------------------------------------------------------------------
+
+// shapes whose tests take hits behind the ray's origin: the cone's side and
+// the quad have no t > EPS check (common.cuh's slab<BEHIND>)
+__host__ __device__ constexpr bool takes_behind(int shape) {
+  return shape == CONE || shape == QUAD;
+}
+
+// prims c * 128 + lane, + L, + 2L, ... of the group's [12, ppad] tables
+// (the L lanes of a ray read L neighbouring columns of each row), folded
+// ascending into the lane's candidate (cd, crow, ca, cdir) under the
+// strictly-closer rule: K3a's test and shape tests. Where the lane's ray
+// walks no chunk now (on false), and for a prim with scene id < 0, the
+// lane tests an identity frame and drops the result: its numbers stay
+// ordinary, so that it sends no lane of the warp down an IEEE slow path.
+template <int SHAPE, int L>
+__device__ __forceinline__ void group_fold_lane(const float* __restrict__ inv,
+                                                const float* __restrict__ trf,
+                                                const int* __restrict__ pid, int ppad, int c,
+                                                int lane, bool on, V3 ro, V3 rd, float& cd,
+                                                int& crow, float& ca, int& cdir, uint32_t& tests,
+                                                uint32_t& hits) {
+  for (int i = 0; i < CHUNK / L; ++i) {
+    const int p = c * CHUNK + lane + i * L;
+    const bool real = on && __ldg(pid + p) >= 0;
+    tests += real;
+    float iv[12];
+#pragma unroll
+    for (int r = 0; r < 12; ++r) iv[r] = real ? ld(inv, r, ppad, p) : (r % 5 == 0 ? 1.0f : 0.0f);
+    const V3 oi = affine(iv, ro);
+    const V3 di = vnorm(linear(iv, rd), TINY);
+    float a;
+    int code;
+    const bool ok = group_shape<SHAPE>(oi, di, a, code) && real;
+    if (!__any_sync(FULL, ok)) continue;
+    if (!ok) continue;
+    float tf[12];
+#pragma unroll
+    for (int r = 0; r < 12; ++r) tf[r] = ld(trf, r, ppad, p);
+    ++hits;
+    const V3 pl = {oi.x + a * di.x, oi.y + a * di.y, oi.z + a * di.z};
+    const V3 e = sub(ro, affine(tf, pl));
+    const float dist = sqrtf(e.x * e.x + e.y * e.y + e.z * e.z);
+    if (dist < cd) {
+      cd = dist;
+      crow = p;
+      ca = a;
+      cdir = code;
+    }
+  }
+}
+
+// the ray's entry into box b (min xyz, max xyz) clamped at 0, or +inf where
+// it misses the box, so that te <= best is slab_cap's test against any best
+// (slab_interval's arithmetic)
+__device__ __forceinline__ float box_entry(const float (&b)[6], V3 o, V3 rcp) {
+  const float t0x = (b[0] - o.x) * rcp.x, t1x = (b[3] - o.x) * rcp.x;
+  const float t0y = (b[1] - o.y) * rcp.y, t1y = (b[4] - o.y) * rcp.y;
+  const float t0z = (b[2] - o.z) * rcp.z, t1z = (b[5] - o.z) * rcp.z;
+  float tmin = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+  const float tmax = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  tmin = fmaxf(tmin, 0.0f);
+  return tmax >= tmin ? tmin : INFINITY;
+}
+
+// the same for box column col of [6, stride] boxes
+__device__ __forceinline__ float column_entry(const float* box, int stride, int col, V3 o,
+                                              V3 rcp) {
+  float b[6];
+#pragma unroll
+  for (int r = 0; r < 6; ++r) b[r] = ld(box, r, stride, col);
+  return box_entry(b, o, rcp);
+}
+
+// the ray walks the chunks c0 + j (j < L) whose entry te (lane j's) is
+// within its best, ascending, each gate reading the best the walk has
+// reached; every ray group of the warp walks its own chunk at each step
+template <int SHAPE, int L>
+__device__ __forceinline__ void walk_chunks(int c0, float te, int lane,
+                                            const float* __restrict__ inv,
+                                            const float* __restrict__ trf,
+                                            const int* __restrict__ pid, int ppad, V3 ro, V3 rd,
+                                            float& bd, int& brow, float& ba, int& bdir,
+                                            uint32_t& tests, uint32_t& entered, uint32_t& hits) {
+  unsigned left = (1u << L) - 1u;  // the chunks not passed yet
+  for (;;) {
+    const unsigned want = group_bits<L>(__ballot_sync(FULL, te <= bd)) & left;
+    if (!__any_sync(FULL, want != 0)) break;
+    const bool on = want != 0;
+    const int j = on ? __ffs(want) - 1 : 0;
+    left = on ? left & ~((2u << j) - 1u) : 0u;
+    entered += on;
+    float cd = FMAX, ca = 0.0f;
+    int crow = -1, cdir = -1;
+    group_fold_lane<SHAPE, L>(inv, trf, pid, ppad, c0 + j, lane, on, ro, rd, cd, crow, ca, cdir,
+                              tests, hits);
+    lane_min<L>(cd, crow, ca, cdir);
+    if (cd < bd) {
+      bd = cd;
+      brow = crow;
+      ba = ca;
+      bdir = cdir;
+    }
+  }
+}
 
 template <int SHAPE>
 __global__ void __launch_bounds__(CHUNK)
     group_culled_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
                         const float* __restrict__ inv, const float* __restrict__ trf,
                         const int* __restrict__ pid, int ppad, const float* __restrict__ cbb,
-                        float* dist_out, int* row_out, float* a_out, int* dir_out,
-                        unsigned long long* counts) {
-  const int ray = blockIdx.x * CHUNK + threadIdx.x;
+                        const float* __restrict__ sbb, int nsuper, float* dist_out, int* row_out,
+                        float* a_out, int* dir_out, unsigned long long* counts) {
+  static_assert(!takes_behind(SHAPE), "a hit behind the origin escapes a per-ray gate");
+  constexpr int L = CULL_LANES;
+  const int lane = threadIdx.x % L;
+  const int ray = blockIdx.x * (CHUNK / L) + threadIdx.x / L;
+  const V3 ro = ray_at(o, M, ray);
+  const V3 rd = ray_at(d, M, ray);
+  const V3 rcp = {safe_rcp(rd.x), safe_rcp(rd.y), safe_rcp(rd.z)};
+  const int nchunks = ppad / CHUNK;
+  float bd = FMAX, ba = 0.0f;
+  int brow = -1, bdir = -1;
+  uint32_t tests = 0, entered = 0, hits = 0, boxes = 0;
+  // M is a multiple of 1024 and a block 128 threads: every warp is full
+  for (int g = 0; g < nsuper; g += L) {
+    float ts = INFINITY;
+    if (g + lane < nsuper) {
+      ++boxes;
+      ts = column_entry(sbb, nsuper, g + lane, ro, rcp);
+    }
+    unsigned left = (1u << L) - 1u;
+    for (;;) {
+      const unsigned want = group_bits<L>(__ballot_sync(FULL, ts <= bd)) & left;
+      if (!__any_sync(FULL, want != 0)) break;
+      const bool on = want != 0;
+      const int j = on ? __ffs(want) - 1 : 0;
+      left = on ? left & ~((2u << j) - 1u) : 0u;
+      for (int h = 0; h < GROUP_SUPER; h += L) {
+        const int c0 = (g + j) * GROUP_SUPER + h;
+        float te = INFINITY;
+        if (on && c0 + lane < nchunks) {
+          ++boxes;
+          te = column_entry(cbb, nchunks, c0 + lane, ro, rcp);
+        }
+        walk_chunks<SHAPE, L>(c0, te, lane, inv, trf, pid, ppad, ro, rd, bd, brow, ba, bdir, tests,
+                              entered, hits);
+      }
+    }
+  }
+  if (lane == 0) {
+    dist_out[ray] = bd;
+    row_out[ray] = bd < FMAX ? brow : -1;
+    a_out[ray] = ba;
+    dir_out[ray] = bdir;
+  }
+  if (!counts) return;
+  add_warp_sum(counts, tests);
+  add_warp_sum(counts + 1, lane == 0 ? entered : 0u);
+  add_warp_sum(counts + 2, hits);
+  add_warp_sum(counts + 3, boxes);
+}
+
+// the K3b super boxes: box s of sbb [6, nsuper] is the exact union (min of
+// the minima, max of the maxima) of chunk boxes 16 s .. 16 s + 15 of cbb
+// [6, nchunks]; one thread a super
+__global__ void super_of_chunks(const float* __restrict__ cbb, int nchunks, float* sbb,
+                                int nsuper) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= nsuper) return;
+  for (int r = 0; r < 6; ++r) {
+    float v = r < 3 ? INFINITY : -INFINITY;
+    for (int c = s * GROUP_SUPER; c < min(nchunks, (s + 1) * GROUP_SUPER); ++c)
+      v = r < 3 ? fminf(v, cbb[r * nchunks + c]) : fmaxf(v, cbb[r * nchunks + c]);
+    sbb[r * nsuper + s] = v;
+  }
+}
+
+// A chunk whose box a ray's segment [0, best] misses may hold a hit behind
+// the ray's origin, so for cones and quads no gate finer than the plain
+// version's decides as it does: one block is a 1024-ray tile, one ray a
+// thread, and the block enters a chunk where some ray of the tile enters
+// its box within its best, as the plain version and the TPU kernel do; an
+// entered chunk is staged and folded by every ray of the tile as in K3a.
+template <int SHAPE>
+__global__ void __launch_bounds__(AN_TILE)
+    group_tile_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
+                      const float* __restrict__ inv, const float* __restrict__ trf,
+                      const int* __restrict__ pid, int ppad, const float* __restrict__ cbb,
+                      float* dist_out, int* row_out, float* a_out, int* dir_out,
+                      unsigned long long* counts) {
+  __shared__ StagedPrim s[CHUNK];
+  __shared__ int ends[CHUNK / 32];
+  const int ray = blockIdx.x * AN_TILE + threadIdx.x;
   const V3 ro = ray_at(o, M, ray);
   const V3 rd = ray_at(d, M, ray);
   const V3 rcp = {safe_rcp(rd.x), safe_rcp(rd.y), safe_rcp(rd.z)};
@@ -491,11 +746,15 @@ __global__ void __launch_bounds__(CHUNK)
   int brow = -1, bdir = -1;
   uint32_t tests = 0, entered = 0, hits = 0;
   for (int c = 0; c < nchunks; ++c) {
-    // M is a multiple of 1024 and a block 128 rays: every warp is full
-    if (!__any_sync(FULL, slab_cap(cbb, nchunks, c, ro, rcp, bd))) continue;
+    // the barrier also ends every thread's use of the previous chunk
+    if (!__syncthreads_or(slab_cap(cbb, nchunks, c, ro, rcp, bd))) continue;
     ++entered;
-    fold_prims<SHAPE>(inv, trf, pid, ppad, c * CHUNK, (c + 1) * CHUNK, ro, rd, bd, brow, ba, bdir,
-                      tests, hits);
+    if (threadIdx.x < CHUNK)
+      stage_prim(s[threadIdx.x], ends, inv, trf, pid, ppad, c * CHUNK + threadIdx.x);
+    __syncthreads();
+    const int end = chunk_end(ends);
+    tests += end;
+    group_fold<SHAPE>(s, end, c, ro, rd, bd, brow, ba, bdir, hits);
   }
   dist_out[ray] = bd;
   row_out[ray] = bd < FMAX ? brow : -1;
@@ -503,9 +762,9 @@ __global__ void __launch_bounds__(CHUNK)
   dir_out[ray] = bdir;
   if (!counts) return;
   add_warp_sum(counts, tests);
+  add_warp_sum(counts + 1, entered);
   add_warp_sum(counts + 2, hits);
   add_warp_sum(counts + 3, static_cast<uint32_t>(nchunks));
-  if (threadIdx.x % 32 == 0) atomicAdd(counts + 1, static_cast<unsigned long long>(entered));
 }
 
 // ---------------------------------------------------------------------------
@@ -570,15 +829,21 @@ __device__ __forceinline__ void stage_tri(StagedTri& s, int* ends, const float (
   put_end(ends, real);
 }
 
-// the staged triangles [0, end) of chunk c folded, ascending, into the ray's
-// best: mt_hit's expressions, in its order. The determinant, 1 / det and u
-// run for every triangle (1 / det given 1 where |det| < EPS, which rejects
-// the test: no slow path on a degenerate triangle); q, v and a only when
-// some ray of the warp has |det| >= EPS and u in [0, 1], since every other
-// test is rejected whatever they are.
-__device__ __forceinline__ void tri_fold(const StagedTri* s, int end, int c, V3 oi, V3 di,
-                                         float& abest, int& best, uint32_t& hits) {
-  for (int t = 0; t < end; ++t) {
+// the staged triangles t = lane, lane + L, ... below end folded, ascending,
+// into (abest, best = base + t): mt_hit's expressions, in its order. K4a
+// runs it with one lane a ray (every triangle of the chunk), K6 with
+// WALK_LANES. The determinant, 1 / det and u run for every triangle (1 /
+// det given 1 where |det| < EPS, which rejects the test: no slow path on a
+// degenerate triangle); q, v and a only when some lane of the warp has
+// |det| >= EPS and u in [0, 1], since every other test is rejected
+// whatever they are.
+template <int L>
+__device__ __forceinline__ void tri_fold(const StagedTri* s, int end, int lane, int base, V3 oi,
+                                         V3 di, float& abest, int& best, uint32_t& hits) {
+  const int n = (end + L - 1) / L;  // the same for every thread of the block
+  for (int i = 0; i < n; ++i) {
+    const int t = lane + i * L;
+    const bool in = L == 1 || t < end;
     const float4 A = s[t].a, e1 = s[t].e1, e2 = s[t].e2;
     const float hx = di.y * e2.z - di.z * e2.y;
     const float hy = di.z * e2.x - di.x * e2.z;
@@ -588,7 +853,7 @@ __device__ __forceinline__ void tri_fold(const StagedTri* s, int end, int c, V3 
     const float invd = 1.0f / (ok ? det : 1.0f);
     const V3 sv = {oi.x - A.x, oi.y - A.y, oi.z - A.z};
     const float u = (sv.x * hx + sv.y * hy + sv.z * hz) * invd;
-    const bool pass = ok && (u >= 0.0f) && (u <= 1.0f);
+    const bool pass = in && ok && (u >= 0.0f) && (u <= 1.0f);
     if (!__any_sync(FULL, pass)) continue;
     const float qx = sv.y * e1.z - sv.z * e1.y;
     const float qy = sv.z * e1.x - sv.x * e1.z;
@@ -599,7 +864,7 @@ __device__ __forceinline__ void tri_fold(const StagedTri* s, int end, int c, V3 
       ++hits;
       if (a < abest) {
         abest = a;
-        best = c * CHUNK + t;
+        best = base + t;
       }
     }
   }
@@ -630,7 +895,7 @@ __global__ void __launch_bounds__(CHUNK)
     const bool next = c + 1 < nchunks;
     if (next) load_tri(tri, ppad, (c + 1) * CHUNK + threadIdx.x, v);
     tests += end;
-    tri_fold(s[b], end, c, oi, di, abest, best, hits);
+    tri_fold<1>(s[b], end, 0, c * CHUNK, oi, di, abest, best, hits);
     if (next) stage_tri(s[b ^ 1][threadIdx.x], ends[b ^ 1], v);
   }
   a_out[ray] = abest;
@@ -760,40 +1025,124 @@ __global__ void __launch_bounds__(AN_BLOCK)
 }
 
 // ---------------------------------------------------------------------------
-// K6: a 128-ray tile walks its ranked 128-triangle chunks
+// K6: a 128-ray tile's ranked 128-triangle chunks, walked by each of its
+// WALK_LANES blocks on its own, L lanes a ray
 // ---------------------------------------------------------------------------
+
+// the staged triangle's box reduced over the warp into wb[warp] (lo xyz, hi
+// xyz); a triangle of zeros (padding) adds nothing
+__device__ __forceinline__ void put_box(float (*wb)[6], const float (&v)[9]) {
+  bool real = false;
+#pragma unroll
+  for (int r = 0; r < 9; ++r) real = real || (v[r] != 0.0f);
+  float b[6];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b[k] = real ? fminf(fminf(v[k], v[3 + k]), v[6 + k]) : INFINITY;
+    b[3 + k] = real ? fmaxf(fmaxf(v[k], v[3 + k]), v[6 + k]) : -INFINITY;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      b[k] = fminf(b[k], __shfl_xor_sync(FULL, b[k], off));
+      b[3 + k] = fmaxf(b[3 + k], __shfl_xor_sync(FULL, b[3 + k], off));
+    }
+  }
+  if (threadIdx.x % 32 == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) wb[threadIdx.x / 32][k] = b[k];
+  }
+}
+
+// the ray's entry into the staged chunk's box (the union of its warps'),
+// clamped at 0, +inf where it misses it
+__device__ __forceinline__ float chunk_entry(const float (*wb)[6], V3 o, V3 rcp) {
+  float b[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) b[k] = wb[0][k];
+#pragma unroll
+  for (int w = 1; w < CHUNK / 32; ++w) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      b[k] = fminf(b[k], wb[w][k]);
+      b[3 + k] = fmaxf(b[3 + k], wb[w][3 + k]);
+    }
+  }
+  return box_entry(b, o, rcp);
+}
 
 __global__ void __launch_bounds__(MESH_TILE)
     mesh_walk(const float* __restrict__ o, const float* __restrict__ d, int M,
               const float* __restrict__ tri, int ppad, const int* __restrict__ order,
               const float* __restrict__ tlo, int S, const float* __restrict__ bound,
               float* a_out, int* row_out, unsigned long long* counts) {
-  __shared__ float s[9][CHUNK];
-  const int tile = blockIdx.x;
-  const int ray = tile * MESH_TILE + threadIdx.x;
+  constexpr int L = WALK_LANES;
+  __shared__ StagedTri s[2][CHUNK];
+  __shared__ int ends[2][CHUNK / 32];
+  __shared__ float wbox[2][CHUNK / 32][6];  // the staged chunk's box by warp
+  const int lane = threadIdx.x % L;
+  const int ray = blockIdx.x * (MESH_TILE / L) + threadIdx.x / L;
+  const int tile = ray / MESH_TILE;
   const V3 oi = ray_at(o, M, ray);
   const V3 di = ray_at(d, M, ray);
+  const V3 rcp = {safe_rcp(di.x), safe_rcp(di.y), safe_rcp(di.z)};
   const float bnd = bound[ray];
   const int* ord = order + static_cast<size_t>(tile) * S;
   const float* ent = tlo + static_cast<size_t>(tile) * S;
   float abest = FMAX;
   int best = -1;
-  uint32_t visits = 0, hits = 0;
-  for (int k = 0; k < S; ++k) {
+  uint32_t tests = 0, visits = 0, hits = 0;
+  // chunk k + 1 is loaded into registers while chunk k is folded, and
+  // staged into the other buffer after it: one barrier a chunk. The first
+  // is loaded only where the prune lets some ray of the block in.
+  float v[9];
+  const float e0 = __ldg(ent);
+  const int walk = __syncthreads_or(e0 < INF && e0 < fminf(abest, bnd)) ? S : 0;
+  if (walk) {
+    load_tri(tri, ppad, __ldg(ord) * CHUNK + threadIdx.x, v);
+    stage_tri(s[0][threadIdx.x], ends[0], v);
+    put_box(wbox[0], v);
+  }
+  for (int k = 0; k < walk; ++k) {
     const float e = __ldg(ent + k);  // the same for every thread
     if (!(e < INF)) break;           // unreachable chunks sort last
-    // the occlusion prune; the barrier also ends every thread's use of the
-    // previous chunk before it is overwritten
+    // the occlusion prune over the block's rays (a ray's lanes hold its
+    // best); the barrier also shows chunk k's staging and ends every
+    // thread's use of chunk k - 1's buffer
     if (!__syncthreads_or(e < fminf(abest, bnd))) break;
+    const int b = k & 1;
     const int c = __ldg(ord + k);
-    stage_chunk(s, tri, ppad, c);
-    __syncthreads();
+    // loaded before chunk k + 1's prune: a load the prune drops costs
+    // bandwidth only
+    const bool next = k + 1 < S && __ldg(ent + k + 1) < INF;
+    if (next) load_tri(tri, ppad, __ldg(ord + k + 1) * CHUNK + threadIdx.x, v);
+    const int end = chunk_end(ends[b]);
     ++visits;
-    fold_chunk(s, c, oi, di, abest, best, hits);
+    // the chunk's box per ray within min(best, bound), with the entry
+    // bounds' margin; a warp folds the chunk when one of its rays enters
+    const float te = chunk_entry(wbox[b], oi, rcp);
+    if (__any_sync(FULL, te * TLO_SCALE - TLO_MARGIN < fminf(abest, bnd))) {
+      tests += lane < end ? (end - lane + L - 1) / L : 0;
+      float ca = FMAX;
+      int ct = CHUNK;
+      tri_fold<L>(s[b], end, lane, 0, oi, di, ca, ct, hits);
+      lane_min<L>(ca, ct);
+      if (ca < abest) {
+        abest = ca;
+        best = c * CHUNK + ct;
+      }
+    }
+    if (next) {
+      stage_tri(s[b ^ 1][threadIdx.x], ends[b ^ 1], v);
+      put_box(wbox[b ^ 1], v);
+    }
   }
-  a_out[ray] = abest;
-  row_out[ray] = best;
-  add_counts(counts, visits * CHUNK, visits, hits);
+  if (lane == 0) {
+    a_out[ray] = abest;
+    row_out[ray] = best;
+  }
+  add_counts(counts, tests, visits, hits);
 }
 
 // ---------------------------------------------------------------------------
@@ -837,10 +1186,16 @@ struct GroupLaunch {
 template <int SHAPE>
 struct GroupCulledLaunch {
   static void run(const float* o, const float* d, int M, const float* inv, const float* trf,
-                  const int* pid, int ppad, const float* cbb, float* dist, int* row, float* a,
-                  int* dir, unsigned long long* counts, cudaStream_t stream) {
-    group_culled_kernel<SHAPE><<<M / CHUNK, CHUNK, 0, stream>>>(o, d, M, inv, trf, pid, ppad, cbb,
-                                                                dist, row, a, dir, counts);
+                  const int* pid, int ppad, const float* cbb, float* sbb, int nsuper, float* dist,
+                  int* row, float* a, int* dir, unsigned long long* counts, cudaStream_t stream) {
+    if constexpr (takes_behind(SHAPE)) {
+      group_tile_kernel<SHAPE><<<M / AN_TILE, AN_TILE, 0, stream>>>(
+          o, d, M, inv, trf, pid, ppad, cbb, dist, row, a, dir, counts);
+    } else {
+      super_of_chunks<<<(nsuper + 127) / 128, 128, 0, stream>>>(cbb, ppad / CHUNK, sbb, nsuper);
+      group_culled_kernel<SHAPE><<<M / CHUNK * CULL_LANES, CHUNK, 0, stream>>>(
+          o, d, M, inv, trf, pid, ppad, cbb, sbb, nsuper, dist, row, a, dir, counts);
+    }
   }
 };
 
@@ -857,9 +1212,22 @@ struct AnLaunch {
 
 bool bad_rays(int M, int tile) { return M <= 0 || M % tile != 0; }
 
+// K3a's (culled false) or K3b's (true) kernel of a shape, and its threads
+// a block and lanes a ray
 template <int SHAPE>
 struct GroupKernel {
-  static const void* get() { return reinterpret_cast<const void*>(group_kernel<SHAPE>); }
+  static const void* get(bool culled, int& threads, int& lanes) {
+    threads = CHUNK;
+    lanes = 1;
+    if (!culled) return reinterpret_cast<const void*>(group_kernel<SHAPE>);
+    if constexpr (takes_behind(SHAPE)) {
+      threads = AN_TILE;
+      return reinterpret_cast<const void*>(group_tile_kernel<SHAPE>);
+    } else {
+      lanes = CULL_LANES;
+      return reinterpret_cast<const void*>(group_culled_kernel<SHAPE>);
+    }
+  }
 };
 
 }  // namespace
@@ -878,16 +1246,20 @@ extern "C" int group_best(const void* o, const void* d, int M, const void* inv, 
       static_cast<cudaStream_t>(stream));
 }
 
-// K3b. As K3a, plus cbb: [6, ppad / 128] f32 chunk boxes.
+// K3b. As K3a, plus cbb: [6, ppad / 128] f32 chunk boxes, and sbb: [6,
+// nsuper] f32 scratch for the super boxes, nsuper = ceil(ppad / 128 / 16).
 extern "C" int group_best_culled(const void* o, const void* d, int M, const void* inv,
                                  const void* trf, const void* pid, int ppad, const void* cbb,
-                                 int shape, void* dist, void* row, void* a, void* dir,
-                                 void* counts, void* stream) {
-  if (bad_rays(M, AN_TILE) || ppad <= 0 || ppad % CHUNK) return cudaErrorInvalidValue;
+                                 void* sbb, int nsuper, int shape, void* dist, void* row, void* a,
+                                 void* dir, void* counts, void* stream) {
+  if (bad_rays(M, AN_TILE) || ppad <= 0 || ppad % CHUNK ||
+      nsuper * GROUP_SUPER < ppad / CHUNK || (nsuper - 1) * GROUP_SUPER >= ppad / CHUNK)
+    return cudaErrorInvalidValue;
   return by_shape<GroupCulledLaunch>(
       shape, static_cast<const float*>(o), static_cast<const float*>(d), M,
       static_cast<const float*>(inv), static_cast<const float*>(trf), static_cast<const int*>(pid),
-      ppad, static_cast<const float*>(cbb), static_cast<float*>(dist), static_cast<int*>(row),
+      ppad, static_cast<const float*>(cbb), static_cast<float*>(sbb), nsuper,
+      static_cast<float*>(dist), static_cast<int*>(row),
       static_cast<float*>(a), static_cast<int*>(dir), static_cast<unsigned long long*>(counts),
       static_cast<cudaStream_t>(stream));
 }
@@ -945,7 +1317,7 @@ extern "C" int mesh_fold(const void* o, const void* d, int M, const void* tri, i
                          const void* order, const void* tlo, int S, const void* bound, void* a,
                          void* row, void* counts, void* stream) {
   if (bad_rays(M, MESH_TILE) || ppad <= 0 || ppad % CHUNK || S <= 0) return cudaErrorInvalidValue;
-  mesh_walk<<<M / MESH_TILE, MESH_TILE, 0, static_cast<cudaStream_t>(stream)>>>(
+  mesh_walk<<<M / MESH_TILE * WALK_LANES, MESH_TILE, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(d), M,
       static_cast<const float*>(tri), ppad, static_cast<const int*>(order),
       static_cast<const float*>(tlo), S, static_cast<const float*>(bound), static_cast<float*>(a),
@@ -953,20 +1325,26 @@ extern "C" int mesh_fold(const void* o, const void* d, int M, const void* tri, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// The compiled K3a (kernel 0, of a shape code) or K4a (kernel 1): out =
-// {registers a thread, local memory bytes a thread (spills), static shared
-// memory bytes a block, resident blocks per SM, threads a block}.
-extern "C" int brute_kernel_info(int kernel, int shape, int* out) {
+// A compiled trace kernel: K3a (kernel 0) or K3b (2) of a shape code, K4a
+// (1) or K6 (3). out = {registers a thread, local memory bytes a thread
+// (spills), static shared memory bytes a block, resident blocks per SM,
+// threads a block, lanes a ray}.
+extern "C" int trace_kernel_info(int kernel, int shape, int* out) {
   const void* fn = nullptr;
+  int threads = CHUNK, lanes = 1;
   if (kernel == 1) {
     fn = reinterpret_cast<const void*>(tri_kernel);
-  } else if (kernel == 0) {
+  } else if (kernel == 3) {
+    fn = reinterpret_cast<const void*>(mesh_walk);
+    lanes = WALK_LANES;
+  } else if (kernel == 0 || kernel == 2) {
+    const bool culled = kernel == 2;
     switch (shape) {
-      case SPHERE: fn = GroupKernel<SPHERE>::get(); break;
-      case CUBE: fn = GroupKernel<CUBE>::get(); break;
-      case CYLINDER: fn = GroupKernel<CYLINDER>::get(); break;
-      case CONE: fn = GroupKernel<CONE>::get(); break;
-      case QUAD: fn = GroupKernel<QUAD>::get(); break;
+      case SPHERE: fn = GroupKernel<SPHERE>::get(culled, threads, lanes); break;
+      case CUBE: fn = GroupKernel<CUBE>::get(culled, threads, lanes); break;
+      case CYLINDER: fn = GroupKernel<CYLINDER>::get(culled, threads, lanes); break;
+      case CONE: fn = GroupKernel<CONE>::get(culled, threads, lanes); break;
+      case QUAD: fn = GroupKernel<QUAD>::get(culled, threads, lanes); break;
       default: return cudaErrorInvalidValue;
     }
   } else {
@@ -976,13 +1354,14 @@ extern "C" int brute_kernel_info(int kernel, int shape, int* out) {
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, CHUNK, 0);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, threads, 0);
   if (err != cudaSuccess) return err;
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(attr.localSizeBytes);
   out[2] = static_cast<int>(attr.sharedSizeBytes);
   out[3] = blocks;
-  out[4] = CHUNK;
+  out[4] = threads;
+  out[5] = lanes;
   return cudaSuccess;
 }
 

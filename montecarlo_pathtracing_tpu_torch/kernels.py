@@ -186,10 +186,10 @@ def _bind_trace_kernels(lib):
     # o, d, M, inv, trf, pid, ppad, shape, dist, row, a, dir, counts,
     # stream
     lib.group_best.argtypes = [p, p, i, p, p, p, i, i, p, p, p, p, p, p]
-    # o, d, M, inv, trf, pid, ppad, cbb, shape, dist, row, a, dir,
-    # counts, stream
-    lib.group_best_culled.argtypes = [p, p, i, p, p, p, i, p, i, p, p, p,
-                                      p, p, p]
+    # o, d, M, inv, trf, pid, ppad, cbb, sbb, nsuper, shape, dist, row,
+    # a, dir, counts, stream
+    lib.group_best_culled.argtypes = [p, p, i, p, p, p, i, p, p, i, i, p, p,
+                                      p, p, p, p]
     # o, d, M, tri, ppad, a, row, counts, stream
     lib.mesh_best.argtypes = [p, p, i, p, i, p, p, p, p]
     # o, d, M, tri, ppad, cbb, sbb, nsuper, a, row, counts, stream
@@ -203,9 +203,9 @@ def _bind_trace_kernels(lib):
     for fn in (lib.group_best, lib.group_best_culled, lib.mesh_best,
                lib.mesh_best_culled, lib.an_fold, lib.mesh_fold):
         fn.restype = ctypes.c_int
-    # kernel (0 K3a, 1 K4a), shape, out [5] i32
-    lib.brute_kernel_info.argtypes = [i, i, p]
-    lib.brute_kernel_info.restype = ctypes.c_int
+    # kernel (0 K3a, 1 K4a, 2 K3b, 3 K6), shape, out [6] i32
+    lib.trace_kernel_info.argtypes = [i, i, p]
+    lib.trace_kernel_info.restype = ctypes.c_int
     lib.trace_error_string.argtypes = [ctypes.c_int]
     lib.trace_error_string.restype = ctypes.c_char_p
 

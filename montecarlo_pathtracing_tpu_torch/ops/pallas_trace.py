@@ -17,8 +17,9 @@ counterparts are in csrc/trace_kernels.cu.
     (`cbb`, [6, ppad / 128] world AABBs) it hands over to
     `group_best_rows_culled` (K3b): the same fold, but a 128-prim chunk
     is skipped for a set of rays none of which enters its box closer than
-    its best so far (a 1024-ray tile in the plain version, as on the
-    TPU; a warp on the card).
+    its best so far (a 1024-ray tile in the plain version, as on the TPU;
+    on the card one ray for spheres, cubes and cylinders, and the tile
+    for cones and quads, whose tests take hits behind the ray's origin).
   - `mesh_best_rows` (K4a): mesh-local unit rays against [9, ppad]
     triangle corner rows, Moller-Trumbore folded on the local parameter
     `a` (monotone in world distance inside one instance). Returns (a,
@@ -51,6 +52,7 @@ from .vec import affine_rows, safe_rcp
 RAY_TILE = 1024     # rays per tile (the TPU kernels' grid step)
 PRIM_CHUNK = 128    # prims or triangles per chunk
 TRI_SUPER = 16      # leaf chunks per K4b super (scene/device.TRI_SUPER)
+GROUP_SUPER = 16    # chunks per K3b super box (csrc/trace_kernels.cu)
 
 _FMAX = float(FLT_MAX)
 _EPS = float(EPSILON)
@@ -302,7 +304,7 @@ def group_best_rows_culled(o, d, shape_code, inv_r, trf_r, pid, cbb,
     group's 128-prim chunks (empty boxes, min > max, for padding chunks).
     Returns (dist, row, a, dircode), each [M], the brute fold's winners.
     `work`, an int64 [4] CUDA tensor, gets the launch's ray-prim tests,
-    chunks entered by warps, tests whose shape test passed and ray-box
+    (ray, chunk) pairs folded, tests whose shape test passed and ray-box
     tests added to it."""
     m, ppad = o.shape[1], inv_r.shape[1]
     nchunks = ppad // PRIM_CHUNK
@@ -332,12 +334,15 @@ def group_best_culled(o, d, shape_code, inv_r, trf_r, pid, cbb, work=None):
         "pid": (pid, _I32, (1, ppad)), "cbb": (cbb, _F32, (6, nchunks))})
     counts = check_work("K3b", work, dev, 4)
     dist, row, a, dircode = _group_outputs(m, dev)
+    nsuper = -(-nchunks // GROUP_SUPER)
+    sbb = torch.empty((6, nsuper), dtype=_F32, device=dev)
     lib = kernels.trace_kernels_lib()
     err = lib.group_best_culled(
         o.data_ptr(), d.data_ptr(), m, inv_r.data_ptr(), trf_r.data_ptr(),
-        pid.data_ptr(), ppad, cbb.data_ptr(), int(shape_code),
-        dist.data_ptr(), row.data_ptr(), a.data_ptr(), dircode.data_ptr(),
-        counts, torch.cuda.current_stream(dev).cuda_stream)
+        pid.data_ptr(), ppad, cbb.data_ptr(), sbb.data_ptr(), nsuper,
+        int(shape_code), dist.data_ptr(), row.data_ptr(), a.data_ptr(),
+        dircode.data_ptr(), counts,
+        torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K3b", lib, err)
     group_best_rows_culled.launches += 1
     return dist, row, a, dircode
@@ -480,18 +485,18 @@ def mesh_best_rows(o, d, tri, cbb=None, sbb=None, work=None):
 mesh_best_rows.launches = 0
 
 
-def brute_kernel_info(kernel: str, shape_code: int = 1) -> dict:
-    """The compiled K3a (of `shape_code`) or K4a, from the CUDA runtime:
-    registers and local memory (spill) bytes a thread, static shared
-    memory a block, resident blocks per SM and threads a block. Needs the
-    card."""
+def trace_kernel_info(kernel: str, shape_code: int = 1) -> dict:
+    """The compiled K3a or K3b (of `shape_code`), K4a or K6, from the CUDA
+    runtime: registers and local memory (spill) bytes a thread, static
+    shared memory a block, resident blocks per SM, threads a block and
+    lanes a ray. Needs the card."""
     lib = kernels.trace_kernels_lib()
-    out = (ctypes.c_int * 5)()
-    err = lib.brute_kernel_info({"K3a": 0, "K4a": 1}[kernel],
-                                int(shape_code), out)
+    out = (ctypes.c_int * 6)()
+    kid = {"K3a": 0, "K4a": 1, "K3b": 2, "K6": 3}[kernel]
+    err = lib.trace_kernel_info(kid, int(shape_code), out)
     raise_on_error(kernel, lib, err)
     return dict(zip(("registers", "local_bytes", "shared_bytes",
-                     "blocks_per_sm", "threads"), out))
+                     "blocks_per_sm", "threads", "lanes"), out))
 
 
 def mesh_best_rows_culled(o, d, tri, cbb, sbb=None, work=None):

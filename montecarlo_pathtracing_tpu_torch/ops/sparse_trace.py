@@ -279,8 +279,8 @@ def mesh_best_rows_sparse(o, d, tri, cbb, work=None):
     """K6: o, d [3, M] mesh-local unit ray rows (M a multiple of
     MESH_TILE), tri [9, ppad], cbb [6, >= ppad / 128] mesh-local chunk
     boxes. Returns (a, row), each [M], as `mesh_best_rows`. `work` as for
-    `group_best_rows_sparse` (ray-triangle tests, chunks visited,
-    triangles hit)."""
+    `group_best_rows_sparse` (ray-triangle tests, chunks visited by the
+    kernel's blocks, triangles hit)."""
     m, ppad = o.shape[1], tri.shape[1]
     if m % MESH_TILE or ppad % PRIM_CHUNK or cbb.shape[1] * PRIM_CHUNK < ppad:
         raise ValueError(f"K6: M={m}, ppad={ppad}, boxes {tuple(cbb.shape)}")
