@@ -1,32 +1,46 @@
 """GPU smoke of the PyTorch/CUDA port: build every kernel, hold each one
 against its plain PyTorch version, and drive every ported path once.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only k1|trace]
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
-and prints no result, without them. Phases (about 8 minutes in all on an
-H100, the builds included):
+and prints no result, without them. Phases (about 9 minutes in all on an
+H100, the builds included; `--only k1` runs phases 1-3 with K1 built
+alone, `--only trace` phases 1 and 7 with the trace kernels built alone):
 
 1. the card's name and power limit; build K1 (csrc/megakernel.cu), K2
    (csrc/bounce_kernel.cu, and its counting build for the work counters)
    and the trace kernels K3a, K3b, K4a, K4b, K5, K6
    (csrc/trace_kernels.cu), one nvcc each, started together, and print
-   the compile reports (registers, spills; each K2, K3a, K3b, K4a, K5 and
-   K6 variant's on a line of its own), and, where the toolkit has
-   cuobjdump, the instructions of K3a's, K3b's, K4a's and K6's fold loops
-   in their SASS by class;
+   the compile reports (registers, spills; each K1, K2, K3a, K3b, K4a,
+   K4b, K5 and K6 variant's on a line of its own), and, where the toolkit
+   has cuobjdump, K1's SASS by instruction class (each variant whole, its
+   innermost fold loops, and the rest) and the instructions of K3a's,
+   K3b's, K4a's, K4b's, K5's tile walk's and K6's fold loops by class;
 2. K1 against its plain version (models/megakernel.mega_pass_reference)
    on the card, 64x48 pixels, 4 bounces, passes 0 and 3, under the
    megakernel protocol (testing/parity.py), on box_diffuse (cull off,
-   opaque), box_balls (transparent), materials (cull on) and a scene with
-   all five shapes, transparency and the cull; and nb_bounces=0 -> black;
+   opaque), box_balls (transparent), materials (cull on), a scene with
+   all five shapes, transparency and the cull, and a 1200-prim
+   scene_stress (a table K1 reads from device memory, past its staging),
+   with each variant's compiled kernel (registers, spills, shared memory,
+   resident blocks); and nb_bounces=0 -> black;
 3. K1's main path at full size: box_diffuse at 800x600, 3 bounces,
    64 passes per call, tile_rays 1<<17, through compile_scene and
    Renderer.advance; the launch count of K1 over one 64-pass window; the
    image finite and non-negative; the device's busy time per pass under
    torch.profiler and its idle share; a 4-pass accumulation of K1 against
    the plain version's; rays/s (pixels x passes x bounces / seconds), K1's
-   and the plain version's time per pass, and K1's bound;
+   time per pass (the card kept ahead) with 1, 2 and 3 bounces beside the
+   rays in flight at each, the plain version's, and K1's bound from the
+   work the pass's inputs need (mk.K1Need); then K1's other variants at
+   full size on the auto route (K1_WINDOWS: materials 800x600x6, culled
+   and opaque; box_balls 800x600x6 at IOR 1.5, light 0.4, transparent;
+   colonnes 1920x1080x6 at light 0.4, culled and transparent): the launch
+   count over the window, the image, rays/s, the device's idle share, K1's
+   time per pass and compiled kernel, and on a 32,768-ray slice of tile 0
+   one pass of K1 against the plain version under the megakernel protocol
+   with the slice's needed work, bound and K1's time on it;
 4. K2 against its plain version (models/bounce_kernel.
    fused_call_reference) through raytrace_fused on the card, 64x48, 4
    bounces, passes 0 and 3, under the fused protocol, in both modes
@@ -54,20 +68,24 @@ H100, the builds included):
    800x600 and K2 by shape over one recorded pass; a 1-pass accumulation
    at 200x150 against the plain version, with K2's time by shape, the
    plain version's and the bound on that pass;
-7. each trace kernel against its plain version on the card (K5 under the
-   trace protocol, testing/parity.py; K3a, K3b, K4a, K4b and K6 rows equal
-   on 99.99% of rays, and distances or a, and K3a's a and dircode, bit
-   for bit where they are, printing the rows that differ): K3a on a
-   random 200-prim group and K3b on a random 300-prim group with chunk
-   boxes of each shape code (2048 rays); K5, K3a and K3b on colonnes' two
+7. each trace kernel against its plain version on the card (K5 on
+   colonnes under the trace protocol, testing/parity.py; K3a, K3b, K4a,
+   K4b, K6 and K5 on cones and quads rows equal on 99.99% of rays, and
+   distances or a, and K3a's and K5's a and dircode, bit for bit where
+   they are, printing the rows that differ): K3a on a random 200-prim
+   group and K3b on a random 300-prim group with chunk boxes of each shape
+   code (2048 rays), K5's tile walk on the cone and quad ones beside the
+   per-ray gate these shapes had before (its differing rows and both
+   times printed); K5, K3a and K3b on colonnes' two
    large groups, K6, K4a and K4b
    (the op mesh_best_rows with leaf and super boxes: K4b's path, which no
    render route reaches) on each mesh_demo instance (one 1<<17 ray tile
    each) and on mesh_hires's 796-chunk sphere (8192 rays; K4b also with
    sbb=None); and K5 and K3b against K3a, K6 and K4b against K4a on the
-   same rays (tests/test_sparse_trace.py:27-54); K4b's time, work and
-   bound over those launches; the registers and spills of every K2 and
-   K5 variant come from phase 1's compile reports;
+   same rays (tests/test_sparse_trace.py:27-54); K4b's time at 4, 8 and
+   16 lanes a ray (each bit-equal to its default's), work and bound over
+   those launches; the registers and spills of every K2 and K5 variant
+   come from phase 1's compile reports;
 8. the pallas-trace route (models.montecarlo.raytrace with the
    megakernel and the fused route off) with the kernels against the
    route with their plain versions, 64x48, 4 bounces, passes 0 and 3, on
@@ -110,8 +128,10 @@ H100, the builds included):
    launches of phases 7 and 9-11: time per launch and the distances'
    move.
 
-The last three lines are a {"kernels": [...]} JSON object, the card's
-name and power limit, and the {"ok": true, "device": {...}} JSON object.
+The last three lines are a {"kernels": [...]} JSON object (K1 on each
+window, K5's tile walk on the cone and quad groups beside its colonnes
+path), the card's name and power limit, and the {"ok": true, "device":
+{...}} JSON object.
 Every check raises, so any failed phase exits non-zero.
 """
 from __future__ import annotations
@@ -190,8 +210,10 @@ TRACE_WRAPPERS = {"K3a": ptk.group_best_rows,
 # culled kernels add box tests (K3b, K4b) and supers entered (K4b)
 N_WORK = {"K3b": 4, "K4b": 5}
 
+# K1's parity scenes: each variant, and a table past what K1 stages
+# (stress_1200: 1,288 columns, read from device memory)
 PARITY_CASES = (("box_diffuse", 1.0), ("box_balls", 1.3), ("materials", 1.5),
-                ("all_shapes", 1.3))
+                ("all_shapes", 1.3), ("stress_1200", 1.0))
 # (name, IOR, share of pixels allowed more than 1e-3 off)
 K2_CASES = (("mesh_demo", 1.3, FUSED_FRAC), ("flat_mesh", 1.0, FUSED_FRAC),
             ("stress_4200", 1.0, FUSED_FRAC_STRESS),
@@ -308,8 +330,8 @@ def build_scene(name: str, device):
                              flat_face=True, device=device)
     elif name == "cull_mesh":
         prims = cull_mesh_scene(scene_mod, mesh_mod, transforms)
-    elif name == "stress_4200":
-        prims = scenes.scene_stress(n_prims=4200)
+    elif name.startswith("stress_"):
+        prims = scenes.scene_stress(n_prims=int(name[len("stress_"):]))
     else:
         prims = scenes.build(name)
     return compile_scene(prims, device=device)
@@ -328,6 +350,8 @@ def phase_parity(device, w=64, h=48, bounces=4):
     for name, ior in PARITY_CASES:
         dev = build_scene(name, device)
         inp = mk.mega_inputs(dev, o, d, tc, ior)
+        print(f"K1 variant {_k1_variant(inp)} on {name} ({inp.tab.shape[1]} "
+              f"columns): {_k1_info_line(inp)}", flush=True)
         for p in (0, 3):
             got = mk.k1_launch(inp, seed_y(p), bounces)
             ref = mk.mega_pass_reference(inp, seed_y(p), bounces)
@@ -345,6 +369,77 @@ def phase_parity(device, w=64, h=48, bounces=4):
             raise AssertionError(f"{name}: nb_bounces=0 is not black")
     print("parity nb_bounces=0: all black", flush=True)
     return worst
+
+
+def _k1_variant(inp):
+    return (f"{'transparent' if inp.has_transparent else 'opaque'}, "
+            f"{'culled' if inp.cull else 'uncull'}")
+
+
+def _k1_info_line(inp):
+    info = mk.k1_kernel_info(inp)
+    return (f"{info['registers']} registers, {info['local_bytes']} bytes "
+            f"local (spills), {info['shared_bytes']} + "
+            f"{info['dynamic_shared_bytes']} bytes shared a block, "
+            f"{info['blocks_per_sm']} blocks of {info['threads']} threads "
+            f"resident per SM")
+
+
+def _k1_pass_ms(inps, bounces, reps=3):
+    """K1 over one pass of the tiles' inputs `inps`, the card kept ahead
+    of the host (_timed around the pass's launches): (median ms per pass
+    over reps passes, passes whose events held host time)."""
+    evs, late = [], 0
+    for rep in range(reps):
+        _, ev, was_late = _timed(lambda: [mk.k1_launch(inp, seed_y(rep),
+                                                       bounces)
+                                          for inp in inps])
+        evs.append(ev)
+        late += was_late
+    torch.cuda.synchronize()
+    return float(np.median([e0.elapsed_time(e1) for e0, e1 in evs])), late
+
+
+def _k1_bound(inps, needs):
+    """Least ms the card could take for K1's pass over `inps`, from the
+    work its inputs need (mk.K1Need of each, from the plain version's
+    final bests): PRIM_OPS of each ray-prim test, BOX_OPS of each slab
+    test, WIN_OPS of each trace that hits, SHADE_OPS of each bounce step;
+    each real ray's 20 bytes in and 12 out, and the tables read once a
+    launch. Returns (ms, "bytes" or "operations", ops, bytes)."""
+    ops = nbytes = 0
+    for inp, need in zip(inps, needs):
+        ops += (SHADE_OPS * int(need.steps) + WIN_OPS * int(need.hits)
+                + BOX_OPS * int(need.box)
+                + sum(PRIM_OPS[code] * int(n) for code, n in
+                      need.prim.items()))
+        tables = [inp.tab, inp.group_desc] + ([inp.sbb, inp.ordr]
+                                              if inp.cull else [])
+        nbytes += 32 * inp.n + sum(t.numel() * t.element_size()
+                                   for t in tables)
+    ms, by = bound(nbytes, ops)
+    return ms, by, ops, nbytes
+
+
+def _k1_need_line(needs):
+    """The work K1Needs counted, and the share of a warp's lane-bounces
+    that carry a path when each warp runs 32 consecutive rays until its
+    longest path ends (one thread a ray)."""
+    steps = sum(int(n.steps) for n in needs)
+    used = slots = 0
+    for n in needs:
+        path = torch.nn.functional.pad(n.path, (0, -n.path.numel() % 32))
+        used += int(path.sum())
+        slots += 32 * int(path.reshape(-1, 32).amax(dim=1).sum())
+    prim = {}
+    for n in needs:
+        for code, k in n.prim.items():
+            prim[code] = prim.get(code, 0) + int(k)
+    return (f"{steps} bounce steps, {sum(int(n.traced) for n in needs)} "
+            f"traces ({sum(int(n.hits) for n in needs)} hit), ray-prim tests "
+            f"by shape {prim}, {sum(int(n.box) for n in needs)} slab tests; "
+            f"lanes carrying a path {used / max(1, slots):.4f} of a warp's "
+            f"lane-bounces (one thread a ray)")
 
 
 def _time_passes(fn, n_passes):
@@ -437,25 +532,113 @@ def phase_main_path(device, w=800, h=600, bounces=3, window=64,
           f"mean_diff={dmean:.2e} max_abs_err={err:.3e}", flush=True)
     assert_megakernel_protocol(img_ref, img_k1, "main path 4 passes")
 
-    k1_ms = _time_passes(
-        lambda k: [mk.k1_launch(inp, seed_y(k), bounces) for inp in inps], 20)
-    # bound of one pass: every ray in flight tests every real prim and
-    # shades once per bounce; a ray in flight at the next bounce hit
-    # something (a miss or a light ends its path), so it needs at least one
-    # hit point and normal (the least: hits on lights are not counted);
-    # 20 bytes in and 12 out per ray
-    hits = sum(alive[t * bounces + b] for t in range(len(inps))
-               for b in range(1, bounces))
-    ops = (sum(alive) * (table_ops(inps[0].tab, inps[0].groups) + SHADE_OPS)
-           + hits * WIN_OPS)
-    nbytes = sum(inp.dirs.shape[0] for inp in inps) * 32
-    bound_ms, bound_by = bound(nbytes, ops)
-    print(f"K1 bound per pass {bound_ms:.4f} ms ({bound_by}: {ops:.4g} FP32 "
-          f"operations over {sum(alive)} ray-bounces and {hits} winners, "
-          f"{nbytes} bytes)", flush=True)
+    k1_ms, late = _k1_pass_ms(inps, bounces)
+    # K1 by the depth of its paths: the pass with 1, 2, ... bounces, beside
+    # the rays in flight at each bounce (the plain version's, pass 0)
+    for b in range(1, bounces + 1):
+        ms_b = k1_ms if b == bounces else _k1_pass_ms(inps, b)[0]
+        in_flight = [sum(alive[t * bounces + k] for t in range(len(inps)))
+                     for k in range(b)]
+        print(f"K1 box_diffuse {w}x{h} with nb_bounces={b}: {ms_b:.5f} ms "
+              f"per pass (the card kept ahead, median of 3); rays in flight "
+              f"by bounce {in_flight}", flush=True)
+    needs = [mk.K1Need(inp) for inp in inps]
+    for inp, need in zip(inps, needs):
+        mk.mega_pass_reference(inp, seed_y(0), bounces, need=need)
+    bound_ms, bound_by, ops, nbytes = _k1_bound(inps, needs)
+    print(f"K1 bound per pass {bound_ms:.5f} ms ({bound_by}: {ops:.4g} FP32 "
+          f"operations, {nbytes} bytes; {_k1_need_line(needs)}); K1 "
+          f"{k1_ms:.5f} ms, {late} of 3 passes late", flush=True)
     return dict(rays_per_s=rays_per_s, window_s=window_s, launches=launches,
                 k1_ms=k1_ms, plain_ms=plain_ms, max_abs_err=err,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+# K1's other variants at full size, each the route's own choice on a
+# BASELINE configuration (benchmarks/configs.py): (scene, light, IOR,
+# width, height, bounces, passes in the window)
+K1_WINDOWS = (("materials", 1.2, 1.0, 800, 600, 6, 8),
+              ("box_balls", 0.4, 1.5, 800, 600, 6, 8),
+              ("colonnes", 0.4, 1.0, 1920, 1080, 6, 2))
+K1_SLICE = 8 * mk.TILE      # rays of the slice held against the plain K1
+
+
+def phase_k1_window(device, name, light, ior, w, h, bounces, window,
+                    tile_rays=1 << 17):
+    """One of K1_WINDOWS through compile_scene and Renderer.advance on the
+    auto route: K1's launch count over the window (passes x tiles), the
+    image finite and non-negative, the device's idle share under
+    torch.profiler, K1's ms per pass with the card kept ahead (_k1_pass_ms)
+    and its compiled variant, and on one K1_SLICE-ray slice of tile 0
+    (4096-ray aligned, so that its super visit order is the tile's) one
+    pass of K1 against the plain version under the megakernel protocol,
+    with the slice's needed work (mk.K1Need) and bound beside K1's time on
+    the slice."""
+    dev = compile_scene(scenes.build(name, light), device=device)
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       refract_ind=ior, light_intensity=light,
+                       tile_rays=tile_rays, passes_per_call=window,
+                       use_kernels=True, device=device)
+    r = Renderer(dev, cfg)
+    r.advance(window)                       # warm-up window
+    mk.k1_launch.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.advance(2 * window)
+    window_s = time.perf_counter() - t0
+    launches = mk.k1_launch.launches
+    if launches != window * r._ntiles:
+        raise AssertionError(f"{name}: K1 launched {launches} times in the "
+                             f"window, want {window} x {r._ntiles} tiles")
+    img = r.image()
+    if img.shape != (h, w, 3) or not np.isfinite(img).all() \
+            or (img < 0).any():
+        raise AssertionError(f"{name}: image is not finite and >= 0")
+    busy, k1_dev = _device_seconds(lambda: r.advance(r.nb_passes + window),
+                                   "mega_kernel")
+    idle = (f"{1.0 - busy / window_s:.4f}" if busy > 0
+            else "not measured")
+    inps = [mk.mega_inputs(dev, r._origin, r._dirs[t], r._tc[t], ior)
+            for t in range(r._ntiles)]
+    k1_ms, late = _k1_pass_ms(inps, bounces)
+    what = f"K1 {name} {w}x{h}x{bounces}"
+    print(f"{what} (variant {_k1_variant(inps[0])}, {inps[0].tab.shape[1]}"
+          f" columns, {r._ntiles} tiles of {r._tile} rays): {launches} "
+          f"launches in a {window}-pass window of {window_s:.4f} s "
+          f"({w * h * window * bounces / window_s:.6g} rays/s); device busy "
+          f"{busy / window * 1e3:.4f} ms per pass (K1 {k1_dev / window * 1e3:.4f}"
+          f"), idle share {idle}; K1 {k1_ms:.5f} ms per pass (the card kept "
+          f"ahead, median of 3, {late} late); {_k1_info_line(inps[0])}",
+          flush=True)
+
+    # one slice of tile 0 against the plain version, with its needed work
+    sl = mk.mega_inputs(dev, r._origin, r._dirs[0][:K1_SLICE],
+                        r._tc[0][:K1_SLICE], ior)
+    got = mk.k1_launch(sl, seed_y(0), bounces)
+    need = mk.K1Need(sl)
+    t0 = time.perf_counter()
+    ref = mk.mega_pass_reference(sl, seed_y(0), bounces, need=need)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    if not np.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite K1 output on the slice")
+    frac, dmean, err = megakernel_match(ref, got)
+    print(f"{what} slice of {K1_SLICE} rays, pass 0, K1 vs plain: "
+          f"close={frac:.4f} mean_diff={dmean:.2e} max_abs_err={err:.3e} "
+          f"(plain {plain_s:.2f} s)", flush=True)
+    assert_megakernel_protocol(ref, got, f"{what} slice")
+    slice_ms, _ = _k1_pass_ms([sl], bounces)
+    bound_ms, bound_by, ops, nbytes = _k1_bound([sl], [need])
+    print(f"{what} slice: K1 {slice_ms:.5f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by}: {ops:.4g} FP32 operations, {nbytes} bytes; "
+          f"{_k1_need_line([need])}); scaled to the pass "
+          f"({w * h} rays): bound {bound_ms * w * h / K1_SLICE:.5f} ms",
+          flush=True)
+    return dict(launches=launches, ms=k1_ms, slice_ms=slice_ms,
+                bound_slice=bound_ms, bound_ms=bound_ms * w * h / K1_SLICE,
+                bound_by=bound_by, plain_ms=plain_s * 1e3, max_abs_err=err,
+                window_s=window_s, idle=idle, name=name)
 
 
 def _k2_call(shape):
@@ -1213,6 +1396,12 @@ def _bits(x):
             else x.to(torch.int32)).cpu().numpy()
 
 
+def _bits_t(x):
+    """A float32 or int32 tensor's bits as an int32 tensor."""
+    return x.contiguous().view(torch.int32) if x.dtype == torch.float32 \
+        else x.to(torch.int32)
+
+
 def _check_exact(what, ref, got, every=False):
     """_check_trace, and rows equal on EXACT_ROWS of the rays with equal
     distances where the rows are equal; with `every`, the fold's other
@@ -1232,6 +1421,56 @@ def _check_exact(what, ref, got, every=False):
     return err
 
 
+def _k5_behind(o, d, code, trf, tables, reps=5):
+    """K5 on a random cone or quad group (300 prims, past
+    trace.SMALL_GROUP_MAX, so that a route would take K5): its tile walk
+    by _check_exact against an_fold_plain (rows, distances, a and dircode
+    bit for bit), and the per-ray gate these shapes had before
+    (an_fold(per_ray=True)) on the same inputs, whose differing rows are
+    printed (ROADMAP C.11); the median ms of each over `reps` launches
+    (_timed), the plain version's, the compiled kernel, and the tile
+    walk's bound from the work its inputs need (_needed). Returns a
+    kernels-line result of the tile walk."""
+    sup = torch.as_tensor(group_chunk_boxes(trf, tables[0].shape[1],
+                                            spk.SUP), device=o.device)
+    inputs = spk.an_inputs(o, d, *tables, sup)
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    ref = spk.an_fold_plain(o, d, *inputs, code)
+    e1.record()
+    launches = TRACE_WRAPPERS["K5"].launches
+    got = spk.group_best_rows_sparse(o, d, code, *tables, sup)
+    launches = TRACE_WRAPPERS["K5"].launches - launches
+    what = f"K5 shape {code} ({tables[0].shape[1]} prims)"
+    err = _check_exact(f"{what}, tile walk, vs plain", ref, got, every=True)
+    old = spk.an_fold(o, d, *inputs, code, sup, per_ray=True)
+    rr, orow = ref[1].cpu().numpy(), old[1].cpu().numpy()
+    diff = rr != orow
+    ties = diff & (_bits(ref[0]) == _bits(old[0]))
+    times = {}
+    for name, per_ray in (("tile walk", False), ("per-ray gate", True)):
+        evs = [_timed(lambda: spk.an_fold(o, d, *inputs, code, sup,
+                                          per_ray=per_ray))[1]
+               for _ in range(reps)]
+        torch.cuda.synchronize()
+        times[name] = float(np.median([a.elapsed_time(b) for a, b in evs]))
+    info = ptk.trace_kernel_info("K5", code)
+    print(_info_line("K5", info), flush=True)
+    args = (o, d, *inputs, code, sup)
+    tests, hits, boxes = (int(x) for x in _needed("K5", args, got))
+    bound_ms, bound_by = bound(_launch_bytes("K5", args),
+                               _needed_ops("K5", args, tests, hits, boxes))
+    print(f"{what}: the per-ray gate differs from plain on {int(diff.sum())}"
+          f" of {diff.size} rows ({int(ties.sum())} of them exact distance "
+          f"ties); tile walk {times['tile walk']:.4f} ms, per-ray gate "
+          f"{times['per-ray gate']:.4f} ms per launch (median of {reps}); "
+          f"plain {e0.elapsed_time(e1):.3f} ms; tile walk's bound "
+          f"{bound_ms:.5f} ms ({bound_by}, {tests} tests needed)", flush=True)
+    return dict(ms=times["tile walk"], plain_ms=e0.elapsed_time(e1),
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                launches=launches, info=info, per_ray_rows=int(diff.sum()))
+
+
 def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
     """Each trace kernel against its plain version on the card, and the
     pruned walks and culled folds against the brute folds on the same rays
@@ -1241,10 +1480,11 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
     mesh_best_rows(cbb=..., sbb=...) does, and this drives it as the
     reference's TPU smoke does (testing/tpu_smoke.py:87-110). Returns the
     worst max abs error per kernel, K4b's recorded launches and its launch
-    count over them."""
+    count over them, and K5's results on the cone and quad groups."""
     worst = {k: 0.0 for k in TRACE_KERNELS}
+    behind = {}
     # K3a on a random ~200-prim group per shape code, K3b on a 300-prim one
-    # with its chunk boxes; two ray tiles
+    # with its chunk boxes, K5 on the cone and quad ones; two ray tiles
     o_np, d_np = random_rays(2048, 7)
     o = torch.as_tensor(o_np, device=device)
     d = torch.as_tensor(d_np, device=device)
@@ -1265,6 +1505,9 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
         ref = ptk.group_best_rows_culled_plain(o, d, code, *tables, cbb)
         worst["K3b"] = max(worst["K3b"], _check_exact(
             f"K3b shape {code} (300 prims) vs plain", ref, got))
+        if code in mk.HITS_BEHIND:
+            behind[code] = _k5_behind(o, d, code, trf, tables)
+            worst["K5"] = max(worst["K5"], behind[code]["max_abs_err"])
 
     # K5, K3a and K3b on colonnes' two large groups, one 1<<17 ray tile
     dev = compile_scene(scenes.build("colonnes", 0.4), device=device)
@@ -1335,13 +1578,31 @@ def phase_trace_parity(device, tile_rays=1 << 17, hires_rays=8192):
         raise AssertionError(f"K4b launched {launches} times for "
                              f"{len(rec4b)} calls of the op")
     torch.cuda.synchronize()
-    return worst, rec4b, launches
+    return worst, rec4b, launches, behind
+
+
+K4B_LANES = (4, 8, 16)
 
 
 def phase_k4b_stats(rec):
-    """K4b over phase 7's launches: ms per launch (CUDA events), its work
-    and bound, and the plain version on the same launches. No render
-    route reaches K4b, so these are its numbers."""
+    """K4b over phase 7's launches: ms per launch (CUDA events) at each of
+    K4B_LANES lanes a ray (each bit-equal to the default's), its work and
+    bound, its compiled kernel, and the plain version on the same
+    launches. No render route reaches K4b, so these are its numbers."""
+    default = [real(*args, **kw) for real, args, kw in rec]
+    for lanes in K4B_LANES:
+        forced = [(real, args, dict(kw, lanes=lanes)) for real, args, kw in rec]
+        for (_, args, kw), ref in zip(forced, default):
+            got = ptk.mesh_best_culled(*args, **kw)
+            if not all(torch.equal(_bits_t(x), _bits_t(y))
+                       for x, y in zip(got, ref)):
+                raise AssertionError(f"K4b at {lanes} lanes differs from "
+                                     f"its default")
+        ms_l = _time_recorded("K4b", forced, count=False)[0]
+        print(f"K4b at {lanes} lanes a ray on phase 7's {len(rec)} launches: "
+              + ", ".join(f"{t:.4f}" for t in ms_l)
+              + f" ms ({ms_l.mean():.4f} mean)", flush=True)
+    print(_info_line("K4b", ptk.trace_kernel_info("K4b")), flush=True)
     ms, work, needed, _ = _time_recorded("K4b", rec)
     ops = sum(_needed_ops("K4b", args, int(n[0]), int(n[1]), int(n[2]))
               for n, (_, args, _) in zip(needed, rec))
@@ -1359,7 +1620,7 @@ def phase_k4b_stats(rec):
     plain_ms, _, err = _plain_vs_kernel("K4b", rec, sub=rec)
     return dict(ms=float(ms.mean()), plain_ms=plain_ms,
                 bound_ms=bound_ms / len(rec), bound_by=bound_by,
-                max_abs_err=err, rec=rec)
+                max_abs_err=err, rec=rec, info=ptk.trace_kernel_info("K4b"))
 
 
 ROUTE_CASES = (("colonnes", 0.4, 1.0), ("mesh_demo", 1.2, 1.3))
@@ -1972,32 +2233,24 @@ def _fold_loop(ins):
 
 def print_fold_sass():
     """The fold loops of K3a (group_kernel) and K3b (group_culled_kernel,
-    and group_tile_kernel for cones and quads), by shape code, and of K4a
-    (tri_kernel) and K6 (mesh_walk) in the SASS of the loaded trace
-    kernels (cuobjdump beside nvcc; nothing where the toolkit lacks it),
-    one line each."""
-    tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
+    and group_tile_kernel for cones and quads), by shape code, of K5's tile
+    walk (an_tile_walk), of K4a (tri_kernel), K4b (tri_culled_kernel, by
+    lanes a ray) and K6 (mesh_walk) in the SASS of the loaded trace
+    kernels (_sass_functions), one line each."""
+    funcs = _sass_functions(kernels.library_path("trace_kernels"),
+                            r"(group_kernel|group_culled_kernel|"
+                            r"group_tile_kernel|tri_kernel|tri_culled_kernel|"
+                            r"an_tile_walk|mesh_walk)")
+    if funcs is None:
         print("cuobjdump not found: SASS not read", flush=True)
         return
-    sass = subprocess.run([tool, "-sass",
-                           kernels.library_path("trace_kernels")],
-                          capture_output=True, text=True, check=True).stdout
-    funcs, ins = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : \S*(group_kernel|group_culled_kernel|"
-                      r"group_tile_kernel|tri_kernel|mesh_walk)(?:ILi(\d))?",
-                      line)
-        if m:
-            ins = funcs.setdefault(
-                m.group(1) + (f"<{m.group(2)}>" if m.group(2) else ""), [])
-            continue
-        if "Function :" in line:
-            ins = None
-        m = _SASS_OP.search(line)
-        if ins is not None and m:
-            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
-    for name, body in sorted(funcs.items()):
+    short = {}
+    for name, body in funcs.items():
+        m = re.search(r"(group_kernel|group_culled_kernel|group_tile_kernel|"
+                      r"tri_kernel|tri_culled_kernel|an_tile_walk|mesh_walk)"
+                      r"(?:ILi(\d+))?", name)
+        short[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = body
+    for name, body in sorted(short.items()):
         parts = _fold_loop(body)
         print(f"SASS fold loop of {name}: " + ("; ".join(
             f"{part} " + ", ".join(f"{k} {v}" for k, v in c.items())
@@ -2005,8 +2258,76 @@ def print_fold_sass():
               flush=True)
 
 
+_SASS_K1_CLASSES = _SASS_CLASSES + (("device loads", ("LDG", "LD")),
+                                     ("constant loads", ("LDC", "ULDC")))
+
+
+def _sass_functions(lib, pattern):
+    """{function name: [(address, opcode, operands)]} of the functions of
+    a loaded library's SASS whose name matches `pattern` (cuobjdump beside
+    nvcc); None where the toolkit lacks cuobjdump."""
+    tool = os.path.join(os.path.dirname(kernels.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, ins = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            ins = funcs.setdefault(name, []) if re.search(pattern, name) \
+                else None
+            continue
+        m = _SASS_OP.search(line)
+        if ins is not None and m:
+            ins.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return funcs
+
+
+def _by_class(ops):
+    return {"all": len(ops), **{cls: sum(op.split(".")[0] in names
+                                         for op in ops)
+                                for cls, names in _SASS_K1_CLASSES}}
+
+
+def print_k1_sass():
+    """K1's SASS by instruction class, per compiled variant: the whole
+    kernel, its innermost loops that hold a MUFU (the fold over a group's
+    prims: a test's reciprocal or square root) and the rest (the bounce
+    step, the RNG, the loop control), one line each."""
+    funcs = _sass_functions(kernels.library_path("megakernel"),
+                            r"mega_kernel")
+    if funcs is None:
+        print("cuobjdump not found: K1's SASS not read", flush=True)
+        return
+    for name, ins in sorted(funcs.items()):
+        addr = {a: k for k, (a, _, _) in enumerate(ins)}
+        loops = []
+        for i, (_, op, rest) in enumerate(ins):
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            lo = addr.get(int(m.group(1), 16)) if m else None
+            if op.startswith("BRA") and lo is not None and lo < i and any(
+                    o.startswith("MUFU") for _, o, _ in ins[lo:i]):
+                loops.append((lo, i))
+        inner = [(lo, hi) for lo, hi in loops
+                 if not any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                            for a, b in loops)]
+        in_loop = set(k for lo, hi in inner for k in range(lo, hi + 1))
+        print(f"SASS of {name}: kernel {_by_class([o for _, o, _ in ins])}; "
+              f"outside its {len(inner)} innermost MUFU loops "
+              f"{_by_class([o for k, (_, o, _) in enumerate(ins) if k not in in_loop])}",
+              flush=True)
+        for lo, hi in inner:
+            print(f"  loop at {ins[lo][0]:#x}: "
+                  f"{_by_class([o for _, o, _ in ins[lo:hi + 1]])}",
+                  flush=True)
+
+
 def _trace_line(kid, res):
     name, replaces, _ = TRACE_KERNELS[kid]
+    if "info" in res:
+        name += (f" ({res['info']['threads']} threads a block, "
+                 f"{res['info']['lanes']} lanes a ray)")
     return {"name": name, "route": "cuda", "source": TRACE_SOURCE,
             "replaces": replaces, "launches": res["launches"],
             "max_abs_err": res["max_abs_err"], "ms": res["ms"],
@@ -2014,37 +2335,103 @@ def _trace_line(kid, res):
             "bound_by": res["bound_by"], "library_ms": None}
 
 
-def main() -> int:
+def phase_builds(names, variants=()):
+    """Phase 1: build and load the kernels of csrc/<name>.cu for `names`
+    (and the variant builds), one nvcc each, started together; print the
+    compile reports, each variant's registers and spills, and the SASS by
+    instruction class."""
+    t0 = time.perf_counter()
+    kernels.build_all(names, variants)
+    loaders = {"megakernel": kernels.megakernel_lib,
+               "bounce_kernel": kernels.bounce_kernel_lib,
+               "trace_kernels": kernels.trace_kernels_lib}
+    for name in names:
+        loaders[name]()
+    print(f"{', '.join(names)} built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name in names:
+        print(kernels.build_log(name).strip(), flush=True)
+    if "megakernel" in names:
+        print_registers(kernels.build_log("megakernel"), "mega_kernel")
+        print_k1_sass()
+    if "bounce_kernel" in names:
+        print_registers(kernels.build_log("bounce_kernel"), "fused_kernel")
+    if "trace_kernels" in names:
+        for kernel in ("an_walk", "an_tile_walk", "group_kernel",
+                       "group_culled_kernel", "group_tile_kernel",
+                       "tri_kernel", "tri_culled_kernel", "mesh_walk"):
+            print_registers(kernels.build_log("trace_kernels"), kernel)
+        print_fold_sass()
+
+
+def run_k1(name_power):
+    """Phases 2, 3 and K1's full-size windows: (phase 3's result, the
+    windows' results)."""
+    worst = phase_parity("cuda")
+    res = phase_main_path("cuda")
+    print(f"[{name_power}] end to end {res['rays_per_s']:.6g} rays/s "
+          f"(800x600 x 64 passes x 3 bounces / {res['window_s']:.4f} s); "
+          f"K1 {res['k1_ms']:.5f} ms/pass (bound {res['bound_ms']:.5f} ms, "
+          f"{res['bound_by']}); plain version {res['plain_ms']:.3f} ms/pass "
+          f"(800x600, 3 bounces)", flush=True)
+    print(f"phase-2 parity worst max_abs_err {worst:.3e}", flush=True)
+    k1_windows = []
+    for args in K1_WINDOWS:
+        resw = phase_k1_window("cuda", *args)
+        print(f"[{name_power}] K1 {resw['name']} {args[3]}x{args[4]}x"
+              f"{args[5]}: {resw['ms']:.5f} ms per pass; on the slice "
+              f"{resw['slice_ms']:.5f} ms (bound {resw['bound_slice']:.5f} "
+              f"ms, {resw['bound_by']}; plain {resw['plain_ms']:.1f} ms)",
+              flush=True)
+        k1_windows.append(resw)
+    return res, k1_windows
+
+
+def run_trace_parity(name_power):
+    """Phase 7 and K4b's numbers over its launches: (K4b's kernels-line
+    result, K5's on the cone and quad groups)."""
+    worst3, rec4b, k4b_launches, behind = phase_trace_parity("cuda")
+    print(f"phase-7 trace kernel parity worst max_abs_err {worst3}",
+          flush=True)
+    k4b = dict(phase_k4b_stats(rec4b), launches=k4b_launches)
+    print(f"[{name_power}] K4b {k4b['ms']:.4f} ms/launch over "
+          f"phase 7's {k4b_launches} launches (bound "
+          f"{k4b['bound_ms']:.5f} ms/launch, {k4b['bound_by']}); plain "
+          f"{k4b['plain_ms']:.3f} ms/launch", flush=True)
+    return k4b, behind
+
+
+def main(argv=()) -> int:
+    """With no arguments every phase; `--only k1` (phases 1-3 and K1's
+    windows, K1 built alone) or `--only trace` (phases 1 and 7, the trace
+    kernels built alone) run one part, for a quick look at one kernel."""
+    only = None
+    if argv:
+        if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ("k1",
+                                                                  "trace"):
+            print("usage: chip_smoke.py [--only k1|trace]", file=sys.stderr)
+            return 2
+        only = argv[1]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     name_power = card()
     print(name_power, flush=True)
-    t0 = time.perf_counter()
-    kernels.build_all(["megakernel", "bounce_kernel", "trace_kernels"],
-                      [("bounce_kernel", kernels.K2_COUNTS)])
-    kernels.megakernel_lib()
-    kernels.bounce_kernel_lib()
-    kernels.trace_kernels_lib()
-    print(f"K1, K2 and the trace kernels built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    print(kernels.build_log("megakernel").strip(), flush=True)
-    print(kernels.build_log("bounce_kernel").strip(), flush=True)
-    print(kernels.build_log("trace_kernels").strip(), flush=True)
-    print_registers(kernels.build_log("bounce_kernel"), "fused_kernel")
-    for kernel in ("an_walk", "group_kernel", "group_culled_kernel",
-                   "group_tile_kernel", "tri_kernel", "mesh_walk"):
-        print_registers(kernels.build_log("trace_kernels"), kernel)
-    print_fold_sass()
-
-    worst = phase_parity("cuda")
-    res = phase_main_path("cuda")
-    print(f"[{name_power}] end to end {res['rays_per_s']:.6g} rays/s "
-          f"(800x600 x 64 passes x 3 bounces / {res['window_s']:.4f} s); "
-          f"K1 {res['k1_ms']:.4f} ms/pass (bound {res['bound_ms']:.4f} ms, "
-          f"{res['bound_by']}); plain version {res['plain_ms']:.3f} ms/pass "
-          f"(800x600, 3 bounces)", flush=True)
-    print(f"phase-2 parity worst max_abs_err {worst:.3e}", flush=True)
+    if only == "k1":
+        phase_builds(["megakernel"])
+        run_k1(name_power)
+    elif only == "trace":
+        phase_builds(["trace_kernels"])
+        run_trace_parity(name_power)
+    if only:
+        print(name_power)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    phase_builds(["megakernel", "bounce_kernel", "trace_kernels"],
+                 [("bounce_kernel", kernels.K2_COUNTS)])
+    res, k1_windows = run_k1(name_power)
 
     worst2 = phase_k2_parity("cuda")
     print(f"phase-4 K2 parity worst max_abs_err {worst2:.3e}", flush=True)
@@ -2065,15 +2452,8 @@ def main() -> int:
           + f" ms/pass (bound {res6['bound_ms']:.4f} ms, plain "
           f"{res6['plain_ms']:.1f} ms)", flush=True)
 
-    worst3, rec4b, k4b_launches = phase_trace_parity("cuda")
-    print(f"phase-7 trace kernel parity worst max_abs_err {worst3}",
-          flush=True)
-    trace = {"K4b": dict(phase_k4b_stats(rec4b), launches=k4b_launches)}
-    print(f"[{name_power}] K4b {trace['K4b']['ms']:.4f} ms/launch over "
-          f"phase 7's {k4b_launches} launches (bound "
-          f"{trace['K4b']['bound_ms']:.5f} ms/launch, "
-          f"{trace['K4b']['bound_by']}); plain {trace['K4b']['plain_ms']:.3f}"
-          f" ms/launch", flush=True)
+    k4b, behind = run_trace_parity(name_power)
+    trace = {"K4b": k4b}
     worst4 = phase_trace_route_parity("cuda")
     print(f"phase-8 route parity worst max_abs_err {worst4:.3e}", flush=True)
     for kid, name, light, ior, w, h, bounces, window in (
@@ -2113,14 +2493,24 @@ def main() -> int:
          "replaces": K1_REPLACES, "launches": res["launches"],
          "max_abs_err": res["max_abs_err"], "ms": res["k1_ms"],
          "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-         "bound_by": res["bound_by"], "library_ms": None},
-        {"name": "K2 fused_kernel", "route": "cuda", "source": K2_SOURCE,
+         "bound_by": res["bound_by"], "library_ms": None}]
+        + [{"name": f"K1 mega_kernel {rw['name']}, a {K1_SLICE}-ray slice",
+            "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
+            "launches": rw["launches"], "max_abs_err": rw["max_abs_err"],
+            "ms": rw["slice_ms"], "plain_ms": rw["plain_ms"],
+            "bound_ms": rw["bound_slice"], "bound_by": rw["bound_by"],
+            "library_ms": None} for rw in k1_windows]
+        + [{"name": "K2 fused_kernel", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": res2["launches"],
          "max_abs_err": res2["max_abs_err"], "ms": res2["k2_ms"],
          "plain_ms": res2["plain_ms"], "bound_ms": res2["bound_ms"],
          "bound_by": res2["bound_by"], "library_ms": None}]
         + [_trace_line(kid, trace[kid])
-           for kid in ("K3a", "K3b", "K4a", "K4b", "K5", "K6")]}))
+           for kid in ("K3a", "K3b", "K4a", "K4b", "K5", "K6")]
+        + [dict(line, name=line["name"].replace(
+            "K5 an_walk", f"K5 an_tile_walk, a random shape-{code} group"))
+           for code, line in sorted((c, _trace_line("K5", r))
+                                    for c, r in behind.items())]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2129,4 +2519,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

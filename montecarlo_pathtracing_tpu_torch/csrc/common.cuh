@@ -5,16 +5,18 @@
 // montecarlo_pathtracing_tpu/models/bounce_kernel.py imports _trace_fold
 // and _bounce_step from megakernel.py, and every kernel uses the shape
 // tests of ops/pallas_trace.py. Here they are: the vec3 helpers, the
-// xxhash32 RNG and random_ray, the five analytic shape tests and the
-// shading-normal point, Moller-Trumbore (mt_hit), the slab test, the
-// closest-hit fold over a [38, P]
-// prim table (prim_work, fold_group, trace_fold) and one bounce of
-// tp/montecarlo.frag:109-176 (bounce_step), a template over the trace
-// function so that each kernel brings its own closest-hit search.
+// xxhash32 RNG and random_ray, the five analytic shape tests, their masked
+// forms (K3a, K3b, K5's tile walk, K1) and the shading-normal point,
+// Moller-Trumbore (mt_hit), the slab test, the closest-hit fold over a
+// [38, P] prim table (prim_work, fold_group, trace_fold: K2's; K1 folds
+// its own staged records) and one bounce of tp/montecarlo.frag:109-176
+// (bounce_step), a template over the trace function so that each kernel
+// brings its own closest-hit search.
 //
 // Floating point is IEEE (sqrtf, logf, sinf, cosf, powf, true division;
 // no --use_fast_math): the shape tests divide by zero on purpose and mask
-// the inf/nan afterwards, as the reference does. FMA contraction is on.
+// the inf/nan afterwards, as the reference does. FMA contraction is on in
+// K1 and K2, off in the trace kernels (kernels.EXTRA_FLAGS).
 
 #pragma once
 
@@ -114,9 +116,34 @@ __device__ __forceinline__ float draw(Rng& st, bool mask) {
   return __uint_as_float(m) - 1.0f;
 }
 
+// v / |v| with the approximate rsqrtf (K1's FAST shading)
+__device__ __forceinline__ V3 vnorm_fast(V3 v) {
+  const float r = rsqrtf(v.x * v.x + v.y * v.y + v.z * v.z);
+  return {v.x * r, v.y * r, v.z * r};
+}
+
 // random_ray (tp/montecarlo.frag:49-89): ONB about d + Beckmann-ish lobe;
-// exactly 2 draws
+// exactly 2 draws. FAST (K1 only) takes the approximate intrinsics:
+// rsqrtf for the normalisations, __logf, __sincosf.
+template <bool FAST = false>
 __device__ V3 random_ray(Rng& st, V3 d, float roughness, bool mask) {
+  if constexpr (FAST) {
+    const V3 w = vnorm_fast({d.x, d.y + 5.0f, d.z + 3.0f});
+    const V3 u = vnorm_fast(cross(d, w));
+    const V3 v = vnorm_fast(cross(d, u));
+    const float alpha = roughness * roughness;
+    const float u1 = draw(st, mask);
+    const float beta = (2.0f * PI_F) * u1;
+    const float u2 = draw(st, mask);
+    const float tan_theta2 = -(alpha * alpha) * __logf(1.0f - u2);
+    const float cos_theta = rsqrtf(1.0f + tan_theta2);
+    const float sin_theta = sqrtf(fmaxf(0.0f, 1.0f - cos_theta * cos_theta));
+    float sb, cb;
+    __sincosf(beta, &sb, &cb);
+    const V3 l = vnorm_fast({cb * sin_theta, sb * sin_theta, cos_theta});
+    return vnorm_fast({u.x * l.x + v.x * l.y + d.x * l.z, u.y * l.x + v.y * l.y + d.y * l.z,
+                       u.z * l.x + v.z * l.y + d.z * l.z});
+  }
   V3 w = vnorm({d.x, d.y + 5.0f, d.z + 3.0f});
   V3 u = vnorm(cross(d, w));
   V3 v = vnorm(cross(d, u));
@@ -286,6 +313,163 @@ __device__ __forceinline__ bool shape_test(V3 o, V3 d, float& a, int& code) {
   if (SHAPE == CYLINDER) return cylinder_test(o, d, a, code);
   if (SHAPE == CONE) return cone_test(o, d, a, code);
   return quad_test(o, d, a, code);
+}
+
+// x / y: IEEE, or with FAST the approximate __fdividef (2 ulp; K1 only)
+template <bool FAST>
+__device__ __forceinline__ float fdiv(float x, float y) {
+  if constexpr (FAST) {
+    return __fdividef(x, y);
+  } else {
+    return x / y;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the masked shape tests (K3a, K3b, K5's tile walk and K1): the tests above,
+// term for term, in select form, with each square root and division whose
+// result the test would mask given an argument of 1 instead. The masked
+// lanes then skip the IEEE square root's and division's slow paths (a zero
+// or an infinite argument), and every value the test keeps is the same
+// float as the tests above give.
+// ---------------------------------------------------------------------------
+
+template <bool FAST = false>
+__device__ __forceinline__ bool g_sphere(V3 o, V3 d, float& a, int& code) {
+  const float OO = o.x * o.x + o.y * o.y + o.z * o.z;
+  const float OD = o.x * d.x + o.y * d.y + o.z * d.z;
+  const float D2 = d.x * d.x + d.y * d.y + d.z * d.z;
+  const float delta4 = OD * OD - D2 * (OO - 1.0f);
+  const bool ok = delta4 > 0.0f;
+  const float sq = sqrtf(ok ? delta4 : 1.0f);
+  const float den = ok ? D2 : 1.0f;
+  const float a1 = fdiv<FAST>(-(OD + sq), den);
+  const float a2 = fdiv<FAST>(-(OD - sq), den);
+  const bool v1 = ok && (a1 > EPS);
+  const bool v2 = ok && (a2 > EPS);
+  a = v1 ? a1 : (v2 ? a2 : FMAX);
+  code = 0;
+  return v1 || v2;
+}
+
+template <bool FAST = false>
+__device__ __forceinline__ bool g_quad(V3 o, V3 d, float& a, int& code) {
+  const bool facing = d.z <= -EPS;
+  const float t = fdiv<FAST>(-o.z, facing ? d.z : -1.0f);
+  const float px = o.x + t * d.x;
+  const float py = o.y + t * d.y;
+  const bool valid = facing && (fabsf(px) <= 1.0f) && (fabsf(py) <= 1.0f);
+  a = valid ? t : FMAX;
+  code = 0;
+  return valid;
+}
+
+template <bool FAST = false>
+__device__ __forceinline__ bool g_cube(V3 o3, V3 d3, float& a, int& code) {
+  const float o[3] = {o3.x, o3.y, o3.z};
+  const float d[3] = {d3.x, d3.y, d3.z};
+  float al = FMAX;
+  int face = 0;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const int c0 = c / 2, c1 = (c0 + 1) % 3, c2 = (c0 + 2) % 3;
+    const float cd = -1.0f + 2.0f * (c % 2);
+    const bool dok = fabsf(d[c0]) > EPS;
+    const float t = fdiv<FAST>(cd - o[c0], dok ? d[c0] : 1.0f);
+    const bool v = dok && (t > EPS) && (fabsf(o[c1] + t * d[c1]) <= 1.0f) &&
+                   (fabsf(o[c2] + t * d[c2]) <= 1.0f) && (t < al);
+    al = v ? t : al;
+    face = v ? c : face;
+  }
+  a = al;
+  code = face;
+  return al < FMAX;
+}
+
+template <bool FAST = false>
+__device__ __forceinline__ bool g_cylinder(V3 o, V3 d, float& a, int& code) {
+  float al = FMAX;
+  int cl = -1;
+  const bool dz_ok = fabsf(d.z) > EPS;
+  const float dz = dz_ok ? d.z : 1.0f;
+#pragma unroll
+  for (int cap = 0; cap < 2; ++cap) {
+    const float zplane = cap ? 1.0f : -1.0f;
+    const float t = fdiv<FAST>(zplane - o.z, dz);
+    const float rx = o.x + t * d.x;
+    const float ry = o.y + t * d.y;
+    const bool v = dz_ok && (t > EPS) && (rx * rx + ry * ry < 1.0f) && (t < al);
+    al = v ? t : al;
+    cl = v ? cap : cl;
+  }
+  const float O2 = o.x * o.x + o.y * o.y;
+  const float OD = o.x * d.x + o.y * d.y;
+  const float D2 = d.x * d.x + d.y * d.y;
+  const float delta4 = OD * OD - D2 * (O2 - 1.0f);
+  const bool ok = delta4 > 0.0f;
+  const float t = fdiv<FAST>(-(OD + sqrtf(ok ? delta4 : 1.0f)), ok ? D2 : 1.0f);
+  const float z = o.z + t * d.z;
+  const bool v = ok && (t > EPS) && (t < al) && (fabsf(z) < 1.0f);
+  a = v ? t : al;
+  code = v ? 2 : cl;
+  return a < FMAX;
+}
+
+template <bool FAST = false>
+__device__ __forceinline__ bool g_cone(V3 o, V3 d, float& a, int& code) {
+  const bool dz_ok = fabsf(d.z) > EPS;
+  const float t0 = fdiv<FAST>(-1.0f - o.z, dz_ok ? d.z : 1.0f);
+  const float rx = o.x + t0 * d.x;
+  const float ry = o.y + t0 * d.y;
+  const bool v0 = dz_ok && (t0 > EPS) && (rx * rx + ry * ry < 1.0f) && (t0 < FMAX);
+  float tl = v0 ? t0 : FMAX;
+  int cl = v0 ? 0 : -1;
+  const float k = 0.8f;  // cos^2 of the cone's half-angle
+  const float coz = o.z - 1.0f;
+  const float dco = d.x * o.x + d.y * o.y + d.z * coz;
+  const float coco = o.x * o.x + o.y * o.y + coz * coz;
+  const float a_ = d.z * d.z - k;
+  const float b_ = 2.0f * (d.z * coz - dco * k);
+  const float c_ = coz * coz - coco * k;
+  const float det = b_ * b_ - 4.0f * a_ * c_;
+  const bool ok = det > 0.0f;
+  const float sq = sqrtf(ok ? det : 1.0f);
+  float t1 = fdiv<FAST>(-b_ - sq, 2.0f * a_);
+  float t2 = fdiv<FAST>(-b_ + sq, 2.0f * a_);
+  t1 = fabsf(o.z + t1 * d.z) > 1.0f ? FMAX : t1;
+  t2 = fabsf(o.z + t2 * d.z) > 1.0f ? FMAX : t2;
+  // the reference's minimum propagates nan, which then fails `t < tl`
+  const bool nan = isnan(t1) || isnan(t2);
+  const float t = fminf(t1, t2);
+  const bool v = !nan && ok && (t < tl);
+  a = v ? t : tl;
+  code = v ? 2 : cl;
+  return a < FMAX;
+}
+
+template <int SHAPE, bool FAST = false>
+__device__ __forceinline__ bool group_shape(V3 o, V3 d, float& a, int& code) {
+  if (SHAPE == SPHERE) return g_sphere<FAST>(o, d, a, code);
+  if (SHAPE == CUBE) return g_cube<FAST>(o, d, a, code);
+  if (SHAPE == CYLINDER) return g_cylinder<FAST>(o, d, a, code);
+  if (SHAPE == CONE) return g_cone<FAST>(o, d, a, code);
+  return g_quad<FAST>(o, d, a, code);
+}
+
+// vnorm(v, TINY) with the square root given 1 where |v|^2 is 0 (its slow
+// path): the same floats; with FAST, v times the approximate rsqrtf of
+// |v|^2 (2 ulp; K1 only)
+template <bool FAST = false>
+__device__ __forceinline__ V3 vnorm_masked(V3 v) {
+  const float l2 = v.x * v.x + v.y * v.y + v.z * v.z;
+  const bool ok = l2 > 0.0f;
+  if constexpr (FAST) {
+    const float r = ok ? rsqrtf(l2) : 1.0f / TINY;
+    return {v.x * r, v.y * r, v.z * r};
+  } else {
+    const float n = ok ? fmaxf(sqrtf(ok ? l2 : 1.0f), TINY) : TINY;
+    return {v.x / n, v.y / n, v.z / n};
+  }
 }
 
 // unnormalized shading-normal point in the local frame (intersection_info,
@@ -501,8 +685,9 @@ struct Path {
 // One bounce of a live path. trace(o, d, n_prev, p_prev, w) fills the
 // winner w of the closest-hit search; it is called a second time for the
 // refraction march-through on transparent scenes. A path that misses or
-// hits an emitter finishes here (done = true).
-template <bool TRANSPARENT, class Trace>
+// hits an emitter finishes here (done = true). FAST (K1 only): random_ray's
+// approximate intrinsics, rsqrtf for E and __powf for the Phong lobe.
+template <bool TRANSPARENT, bool FAST = false, class Trace>
 __device__ __forceinline__ void bounce_step(Trace& trace, float ior, Path& s) {
   const V3 unit_z = {0.0f, 0.0f, 1.0f};
   Win w;
@@ -523,7 +708,7 @@ __device__ __forceinline__ void bounce_step(Trace& trace, float ior, Path& s) {
   V3 att = s.att;
 
   // draws 1-2: the diffuse sample, every hit lane (:127)
-  V3 ray_d = random_ray(s.st, N, 1.0f - rough, true);
+  V3 ray_d = random_ray<FAST>(s.st, N, 1.0f - rough, true);
 
   // Schlick from the IOR slider (:129)
   float r0 = (ior - 1.0f) / (ior + 1.0f);
@@ -533,9 +718,9 @@ __device__ __forceinline__ void bounce_step(Trace& trace, float ior, Path& s) {
   float rs = fminf(fmaxf(r0 + (1.0f - r0) * x5, 0.0f), 1.0f);
 
   V3 R = reflect(neg(ray_d), N);  // (:131)
-  V3 E = vnorm(sub(s.o, P), TINY);
+  V3 E = FAST ? vnorm_masked<true>(sub(s.o, P)) : vnorm(sub(s.o, P), TINY);
   float se = (1.0f - rough) * 100.0f + rough * 2.0f;  // (:133)
-  float spec = powf(fmaxf(0.0f, dot(E, R)), se);
+  float spec = FAST ? __powf(fmaxf(0.0f, dot(E, R)), se) : powf(fmaxf(0.0f, dot(E, R)), se);
 
   // ambient leak + emissive gather (:136)
   float emit = emis * (1.0f - shin) * alpha;
@@ -561,7 +746,7 @@ __device__ __forceinline__ void bounce_step(Trace& trace, float ior, Path& s) {
 
   // draws 4-5: the reflect-branch sample (:143,158)
   V3 rray = unit_z;
-  if (choose_refl) rray = random_ray(s.st, reflect(d, N), 1.0f - shin * rough, true);
+  if (choose_refl) rray = random_ray<FAST>(s.st, reflect(d, N), 1.0f - shin * rough, true);
 
   // attenuation updates (:142,147,161,170); the re-trace below does not
   // change them, so they are done first and fewer values stay live across it

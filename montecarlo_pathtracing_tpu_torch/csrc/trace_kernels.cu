@@ -27,8 +27,8 @@
 // Their plain PyTorch versions are the *_plain functions beside the
 // wrappers; chip_smoke.py holds each kernel against its plain version.
 //
-// Design. One thread per ray in K3a, K4a, K4b and K5, L lanes per ray in
-// K3b and K6; a ray's best hit in registers. Folds run in ascending prim
+// Design. One thread per ray in K3a, K4a and K5, L lanes per ray in K3b,
+// K4b and K6; a ray's best hit in registers. Folds run in ascending prim
 // or triangle order with a strict `<`: the TPU kernels' first minimum
 // inside a chunk followed by a strictly-closer merge across chunks
 // (pallas_trace.py:204-224) is exactly that scan, so the winners, ties
@@ -38,11 +38,9 @@
 // lexicographic minimum, the lowest row on an equal key (lane_min): the
 // first minimum of the chunk's ascending scan, merged strictly closer.
 // Padding prims (scene id < 0 in K3a and K3b, ok flag 0 in K5) never win;
-// padding triangles are degenerate. K4b stages each chunk's [9, 128]
-// corner rows (4.6 KB) in shared memory, one column per thread, and every
-// thread then tests the chunk's triangles from there. K5 reads an 8-prim
-// block's [25, 8] table (inverse rows, forward rows, ok flag) as warp-wide
-// broadcasts (see "The walks").
+// padding triangles are degenerate. K5 reads an 8-prim block's [25, 8]
+// table (inverse rows, forward rows, ok flag) as warp-wide broadcasts (see
+// "The walks").
 //
 // The brute folds (K3a, K4a) are bound by the instructions they issue:
 // every FP32 operation is one (no FMA, below), and each IEEE division and
@@ -109,12 +107,23 @@
 // tests, 131,072 rays x 1,172 boxes a launch there, about elevenfold. A
 // lane whose ray walks nothing at a step, and a prim with scene id < 0,
 // test an identity frame and drop the result: no lane of the warp takes an
-// IEEE slow path on a NaN or a zero. K4b gates per block
-// (__syncthreads_or), since its block stages a chunk's triangles in shared
-// memory together; the barrier is the one staging needs anyway. Its
-// padding leaves (past the last real chunk, empty boxes) are skipped and
-// never read; the reference clamped their data index to the last real
-// chunk instead (pallas_trace.py:580-590).
+// IEEE slow path on a NaN or a zero.
+//
+// K4b, one thread a ray, gated its 128-ray blocks (__syncthreads_or) on
+// every super and leaf, staged each entered chunk as [9][128] scalars and
+// tested all 128 triangles of it with mt_hit, without K4a's staged edges
+// or its reject on u. It is built from K3b's and K4a's parts now: L =
+// TRI_LANES lanes a ray, each ray gated on its own best a (exact: a
+// triangle's hits lie in front of the origin) through the supers, L tested
+// at once, and the leaves of each super it enters, L at a time, walked
+// ascending; in an entered leaf lane j folds triangles j, j + L, ... with
+// K4a's test and warp-wide reject on u, and the lanes reduce (a, index)
+// (lane_min). The triangles are staged once a launch, as K4a stages them
+// (the corner and the edges, StagedTri), into a scratch buffer in device
+// memory (stage_tri_records), from which the lanes of a ray read 48-byte
+// neighbouring records. Its padding leaves (past the last real chunk,
+// empty boxes) are skipped and never read; the reference clamped their
+// data index to the last real chunk instead (pallas_trace.py:580-590).
 //
 // The walks (K5, K6). A tile's ranked list (order[t], tlo[t], ascending
 // entry bound) is walked front to back in one launch; before each block or
@@ -129,14 +138,18 @@
 // is sorted and best only shrinks, so nothing later passes the prune
 // either. Winners equal the brute fold's; on an exact distance tie between
 // two blocks the ranked order decides, as it does on the TPU.
-// - K5: each warp walks its 1024-ray tile's list on its own, with no block
-//   barrier: it takes the prune over its own 32 rays (__any_sync), then
-//   tests the block's box (sup_bb) per ray within min(best, bound), K3b's
-//   slab test, and skips the block when none of its rays enters it (a lane
-//   that does not enter idles while the others test). That per-ray gate
-//   rests on hits lying in front of the origin; for cones and quads it
-//   holds up to the trace protocol, to which chip_smoke.py holds K5. K5's
-//   plain version keeps the tile-wide prune alone. K5 reads each prim's 25
+// - K5 (spheres, cubes, cylinders: an_walk): each warp walks its 1024-ray
+//   tile's list on its own, with no block barrier: it takes the prune over
+//   its own 32 rays (__any_sync), then tests the block's box (sup_bb) per
+//   ray within min(best, bound), K3b's slab test, and skips the block when
+//   none of its rays enters it (a lane that does not enter idles while the
+//   others test). That per-ray gate rests on hits lying in front of the
+//   origin. Cones and quads take hits behind it, and there the per-ray
+//   gate differed from the plain version (chip_smoke.py phase 7 prints by
+//   how many rows), so for them a block is a tile (an_tile_walk): the
+//   prune over its 1024 rays (__syncthreads_or), and every ray of the tile
+//   tests every block the prune admits, as the plain version, which keeps
+//   the tile-wide prune alone, and the TPU kernel do. K5 reads each prim's 25
 //   rows with __ldg, the same address for the warp's 32 lanes: one
 //   broadcast from L1 each, issued together for the block's 8 prims, so no
 //   step waits on a staging barrier. Staging each block's table per warp in
@@ -160,7 +173,8 @@
 //   staging alone.
 // - Lanes a ray, measured on an H100 from 4, 8 and 16 with the rest of the
 //   design as above (PERF.md): K3b is fastest at 16, K6 at 8; at 16, K6's
-//   blocks double, and with them the part of its floor they cost.
+//   blocks double, and with them the part of its floor they cost. K4b's
+//   are timed by chip_smoke.py (K4B_LANES) each run.
 // The TPU's repeated calls over a budgeted worklist, carrying the best in
 // and out (ain/rin), are not needed: the whole list is walked in one
 // launch.
@@ -184,12 +198,12 @@
 // ray against each chunk's items up to its end, so a prim with scene id <
 // 0 before a chunk's last real prim counts too; K6 only where the ray's
 // warp folds the chunk; K3b's other shapes: the real prims of the chunks
-// the ray walks), [1] 128-prim chunks (K3a) or chunks (K4a, K6) that
-// blocks visited, 8-prim blocks that warps entered (K5), (ray, chunk)
-// pairs folded (K3b), or leaf chunks that blocks entered (K4b), [2] tests
-// that hit (the shape test passed, or the triangle was hit); K3b and K4b
-// add [3] ray-box tests (K3b: super and chunk boxes, over a ray's lanes)
-// and K4b [4] supers that blocks entered.
+// the ray walks; K4b: every triangle of the leaves the ray folds, padding
+// included), [1] 128-prim chunks (K3a) or chunks (K4a, K6) that blocks
+// visited, 8-prim blocks that warps entered (K5), (ray, chunk) pairs
+// folded (K3b, K4b), [2] tests that hit (the shape test passed, or the
+// triangle was hit); K3b and K4b add [3] ray-box tests (super and chunk or
+// leaf boxes, over a ray's lanes) and K4b [4] (ray, super) pairs entered.
 //
 // Floating point is IEEE, without --use_fast_math (see common.cuh), and this
 // file is built without FMA contraction (-fmad=false, kernels.EXTRA_FLAGS):
@@ -220,6 +234,7 @@ constexpr float TLO_MARGIN = 1e-4f;
 constexpr int TRI_SUPER = 16;   // leaf chunks per K4b super
 constexpr int WALK_LANES = 8;   // lanes per ray in K6
 constexpr int CULL_LANES = 16;  // lanes per ray in K3b
+constexpr int TRI_LANES = 16;   // lanes per ray in K4b
 constexpr int GROUP_SUPER = 16; // chunks per K3b super box
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -303,128 +318,6 @@ __device__ __forceinline__ bool prim_hit(const float* iv, const float* tf, V3 o,
 // ---------------------------------------------------------------------------
 // K3a: every prim of one group, ascending
 // ---------------------------------------------------------------------------
-
-// K3a's shape tests: common.cuh's, term for term, in select form, with each
-// square root and division whose result the test would mask given an
-// argument of 1 instead. The masked lanes then skip the IEEE square root's
-// and division's slow paths (a zero or an infinite argument), and every
-// value the test keeps is the same float as common.cuh's.
-__device__ __forceinline__ bool g_sphere(V3 o, V3 d, float& a, int& code) {
-  const float OO = o.x * o.x + o.y * o.y + o.z * o.z;
-  const float OD = o.x * d.x + o.y * d.y + o.z * d.z;
-  const float D2 = d.x * d.x + d.y * d.y + d.z * d.z;
-  const float delta4 = OD * OD - D2 * (OO - 1.0f);
-  const bool ok = delta4 > 0.0f;
-  const float sq = sqrtf(ok ? delta4 : 1.0f);
-  const float den = ok ? D2 : 1.0f;
-  const float a1 = -(OD + sq) / den;
-  const float a2 = -(OD - sq) / den;
-  const bool v1 = ok && (a1 > EPS);
-  const bool v2 = ok && (a2 > EPS);
-  a = v1 ? a1 : (v2 ? a2 : FMAX);
-  code = 0;
-  return v1 || v2;
-}
-
-__device__ __forceinline__ bool g_quad(V3 o, V3 d, float& a, int& code) {
-  const bool facing = d.z <= -EPS;
-  const float t = -o.z / (facing ? d.z : -1.0f);
-  const float px = o.x + t * d.x;
-  const float py = o.y + t * d.y;
-  const bool valid = facing && (fabsf(px) <= 1.0f) && (fabsf(py) <= 1.0f);
-  a = valid ? t : FMAX;
-  code = 0;
-  return valid;
-}
-
-__device__ __forceinline__ bool g_cube(V3 o3, V3 d3, float& a, int& code) {
-  const float o[3] = {o3.x, o3.y, o3.z};
-  const float d[3] = {d3.x, d3.y, d3.z};
-  float al = FMAX;
-  int face = 0;
-#pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    const int c0 = c / 2, c1 = (c0 + 1) % 3, c2 = (c0 + 2) % 3;
-    const float cd = -1.0f + 2.0f * (c % 2);
-    const bool dok = fabsf(d[c0]) > EPS;
-    const float t = (cd - o[c0]) / (dok ? d[c0] : 1.0f);
-    const bool v = dok && (t > EPS) && (fabsf(o[c1] + t * d[c1]) <= 1.0f) &&
-                   (fabsf(o[c2] + t * d[c2]) <= 1.0f) && (t < al);
-    al = v ? t : al;
-    face = v ? c : face;
-  }
-  a = al;
-  code = face;
-  return al < FMAX;
-}
-
-__device__ __forceinline__ bool g_cylinder(V3 o, V3 d, float& a, int& code) {
-  float al = FMAX;
-  int cl = -1;
-  const bool dz_ok = fabsf(d.z) > EPS;
-  const float dz = dz_ok ? d.z : 1.0f;
-#pragma unroll
-  for (int cap = 0; cap < 2; ++cap) {
-    const float zplane = cap ? 1.0f : -1.0f;
-    const float t = (zplane - o.z) / dz;
-    const float rx = o.x + t * d.x;
-    const float ry = o.y + t * d.y;
-    const bool v = dz_ok && (t > EPS) && (rx * rx + ry * ry < 1.0f) && (t < al);
-    al = v ? t : al;
-    cl = v ? cap : cl;
-  }
-  const float O2 = o.x * o.x + o.y * o.y;
-  const float OD = o.x * d.x + o.y * d.y;
-  const float D2 = d.x * d.x + d.y * d.y;
-  const float delta4 = OD * OD - D2 * (O2 - 1.0f);
-  const bool ok = delta4 > 0.0f;
-  const float t = -(OD + sqrtf(ok ? delta4 : 1.0f)) / (ok ? D2 : 1.0f);
-  const float z = o.z + t * d.z;
-  const bool v = ok && (t > EPS) && (t < al) && (fabsf(z) < 1.0f);
-  a = v ? t : al;
-  code = v ? 2 : cl;
-  return a < FMAX;
-}
-
-__device__ __forceinline__ bool g_cone(V3 o, V3 d, float& a, int& code) {
-  const bool dz_ok = fabsf(d.z) > EPS;
-  const float t0 = (-1.0f - o.z) / (dz_ok ? d.z : 1.0f);
-  const float rx = o.x + t0 * d.x;
-  const float ry = o.y + t0 * d.y;
-  const bool v0 = dz_ok && (t0 > EPS) && (rx * rx + ry * ry < 1.0f) && (t0 < FMAX);
-  float tl = v0 ? t0 : FMAX;
-  int cl = v0 ? 0 : -1;
-  const float k = 0.8f;  // cos^2 of the cone's half-angle
-  const float coz = o.z - 1.0f;
-  const float dco = d.x * o.x + d.y * o.y + d.z * coz;
-  const float coco = o.x * o.x + o.y * o.y + coz * coz;
-  const float a_ = d.z * d.z - k;
-  const float b_ = 2.0f * (d.z * coz - dco * k);
-  const float c_ = coz * coz - coco * k;
-  const float det = b_ * b_ - 4.0f * a_ * c_;
-  const bool ok = det > 0.0f;
-  const float sq = sqrtf(ok ? det : 1.0f);
-  float t1 = (-b_ - sq) / (2.0f * a_);
-  float t2 = (-b_ + sq) / (2.0f * a_);
-  t1 = fabsf(o.z + t1 * d.z) > 1.0f ? FMAX : t1;
-  t2 = fabsf(o.z + t2 * d.z) > 1.0f ? FMAX : t2;
-  // the reference's minimum propagates nan, which then fails `t < tl`
-  const bool nan = isnan(t1) || isnan(t2);
-  const float t = fminf(t1, t2);
-  const bool v = !nan && ok && (t < tl);
-  a = v ? t : tl;
-  code = v ? 2 : cl;
-  return a < FMAX;
-}
-
-template <int SHAPE>
-__device__ __forceinline__ bool group_shape(V3 o, V3 d, float& a, int& code) {
-  if (SHAPE == SPHERE) return g_sphere(o, d, a, code);
-  if (SHAPE == CUBE) return g_cube(o, d, a, code);
-  if (SHAPE == CYLINDER) return g_cylinder(o, d, a, code);
-  if (SHAPE == CONE) return g_cone(o, d, a, code);
-  return g_quad(o, d, a, code);
-}
 
 // a staged prim: its inverse and forward affine rows, four floats a
 // float4, so that a thread reads a 3x4 matrix as three 16-byte broadcasts
@@ -771,37 +664,6 @@ __global__ void __launch_bounds__(AN_TILE)
 // K4a: every 128-triangle chunk of one instance, ascending
 // ---------------------------------------------------------------------------
 
-// corners of triangle t of the staged chunk
-__device__ __forceinline__ void corners(const float (&s)[9][CHUNK], int t, V3& A, V3& B, V3& C) {
-  A = {s[0][t], s[1][t], s[2][t]};
-  B = {s[3][t], s[4][t], s[5][t]};
-  C = {s[6][t], s[7][t], s[8][t]};
-}
-
-// stage chunk c of the [9, ppad] corner rows, one column per thread
-__device__ __forceinline__ void stage_chunk(float (&s)[9][CHUNK], const float* tri, int ppad,
-                                            int c) {
-#pragma unroll
-  for (int r = 0; r < 9; ++r) s[r][threadIdx.x] = __ldg(tri + r * ppad + c * CHUNK + threadIdx.x);
-}
-
-// fold the staged chunk c into (abest, best) under the strictly-closer rule,
-// counting the triangles hit
-__device__ __forceinline__ void fold_chunk(const float (&s)[9][CHUNK], int c, V3 oi, V3 di,
-                                           float& abest, int& best, uint32_t& hits) {
-  for (int t = 0; t < CHUNK; ++t) {
-    V3 A, B, C;
-    corners(s, t, A, B, C);
-    float a;
-    if (!mt_hit(A, B, C, oi, di, a)) continue;
-    ++hits;
-    if (a < abest) {
-      abest = a;
-      best = c * CHUNK + t;
-    }
-  }
-}
-
 // a triangle staged for K4a: its corner A and its edges e1 = B - A and
 // e2 = C - A (mt_hit's own subtractions, done once a chunk instead of once a
 // test), a float4 each, so that a thread reads it as three 16-byte
@@ -904,46 +766,141 @@ __global__ void __launch_bounds__(CHUNK)
 }
 
 // ---------------------------------------------------------------------------
-// K4b: K4a behind two levels of box tests, a block entering a super or a
-// leaf only if one of its rays enters the box no farther than its best a
+// K4b: K4a behind two levels of box tests, L lanes a ray, each ray gated on
+// its own best a through the supers and then the leaves
 // ---------------------------------------------------------------------------
 
+// triangle t of the [9, ppad] corner rows as K4a stages it (the corner and
+// the edges), into st[t]: one thread a triangle, once a launch
+__global__ void stage_tri_records(const float* __restrict__ tri, int ppad, StagedTri* st) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= ppad) return;
+  float v[9];
+  load_tri(tri, ppad, t, v);
+  st[t].a = make_float4(v[0], v[1], v[2], 0.0f);
+  st[t].e1 = make_float4(v[3] - v[0], v[4] - v[1], v[5] - v[2], 0.0f);
+  st[t].e2 = make_float4(v[6] - v[0], v[7] - v[1], v[8] - v[2], 0.0f);
+}
+
+// triangles lane, lane + L, ... of the staged chunk s folded, ascending,
+// into the lane's candidate (ca, ct = index in the chunk): tri_fold's test
+// with its warp-wide gate on u, for the rays that walk the chunk (on); a
+// lane whose ray walks nothing now tests the chunk it is given and drops
+// the result
+template <int L>
+__device__ __forceinline__ void tri_fold_lane(const StagedTri* __restrict__ s, int lane, bool on,
+                                              V3 oi, V3 di, float& ca, int& ct, uint32_t& tests,
+                                              uint32_t& hits) {
+  for (int i = 0; i < CHUNK / L; ++i) {
+    const int t = lane + i * L;
+    tests += on;
+    const float4 A = s[t].a, e1 = s[t].e1, e2 = s[t].e2;
+    const float hx = di.y * e2.z - di.z * e2.y;
+    const float hy = di.z * e2.x - di.x * e2.z;
+    const float hz = di.x * e2.y - di.y * e2.x;
+    const float det = e1.x * hx + e1.y * hy + e1.z * hz;
+    const bool ok = fabsf(det) >= EPS;
+    const float invd = 1.0f / (ok ? det : 1.0f);
+    const V3 sv = {oi.x - A.x, oi.y - A.y, oi.z - A.z};
+    const float u = (sv.x * hx + sv.y * hy + sv.z * hz) * invd;
+    const bool pass = on && ok && (u >= 0.0f) && (u <= 1.0f);
+    if (!__any_sync(FULL, pass)) continue;
+    const float qx = sv.y * e1.z - sv.z * e1.y;
+    const float qy = sv.z * e1.x - sv.x * e1.z;
+    const float qz = sv.x * e1.y - sv.y * e1.x;
+    const float v = (di.x * qx + di.y * qy + di.z * qz) * invd;
+    const float a = (e2.x * qx + e2.y * qy + e2.z * qz) * invd;
+    if (pass && (v >= 0.0f) && (u + v <= 1.0f) && (a > EPS)) {
+      ++hits;
+      if (a < ca) {
+        ca = a;
+        ct = t;
+      }
+    }
+  }
+}
+
+// the ray walks the leaf chunks c0 + j (j < L) whose entry te (lane j's)
+// is within its best a, ascending, each gate reading the best the walk has
+// reached; every ray group of the warp walks its own chunk at each step
+template <int L>
+__device__ __forceinline__ void walk_tri_chunks(int c0, float te, int lane,
+                                                const StagedTri* __restrict__ st, V3 oi, V3 di,
+                                                float& abest, int& best, uint32_t& tests,
+                                                uint32_t& entered, uint32_t& hits) {
+  unsigned left = (1u << L) - 1u;  // the chunks not passed yet
+  for (;;) {
+    const unsigned want = group_bits<L>(__ballot_sync(FULL, te <= abest)) & left;
+    if (!__any_sync(FULL, want != 0)) break;
+    const bool on = want != 0;
+    const int j = on ? __ffs(want) - 1 : 0;
+    left = on ? left & ~((2u << j) - 1u) : 0u;
+    entered += on;
+    const int c = on ? c0 + j : 0;  // a ray off the walk reads chunk 0
+    float ca = FMAX;
+    int ct = CHUNK;
+    tri_fold_lane<L>(st + c * CHUNK, lane, on, oi, di, ca, ct, tests, hits);
+    lane_min<L>(ca, ct);
+    if (ca < abest) {
+      abest = ca;
+      best = c * CHUNK + ct;
+    }
+  }
+}
+
+template <int L>
 __global__ void __launch_bounds__(CHUNK)
     tri_culled_kernel(const float* __restrict__ o, const float* __restrict__ d, int M,
-                      const float* __restrict__ tri, int ppad, const float* __restrict__ cbb,
+                      const StagedTri* __restrict__ st, int ppad, const float* __restrict__ cbb,
                       const float* __restrict__ sbb, int nsuper, float* a_out, int* row_out,
                       unsigned long long* counts) {
-  __shared__ float s[9][CHUNK];
-  const int ray = blockIdx.x * CHUNK + threadIdx.x;
+  static_assert(TRI_SUPER % L == 0, "a super's leaves are tested L at a time");
+  const int lane = threadIdx.x % L;
+  const int ray = blockIdx.x * (CHUNK / L) + threadIdx.x / L;
   const V3 oi = ray_at(o, M, ray);
   const V3 di = ray_at(d, M, ray);
   const V3 rcp = {safe_rcp(di.x), safe_rcp(di.y), safe_rcp(di.z)};
   const int nreal = ppad / CHUNK, nleaf = nsuper * TRI_SUPER;
   float abest = FMAX;
   int best = -1;
-  uint32_t boxes = 0, supers = 0, visits = 0, hits = 0;
-  for (int sc = 0; sc < nsuper; ++sc) {
-    ++boxes;
-    if (!__syncthreads_or(slab_cap(sbb, nsuper, sc, oi, rcp, abest))) continue;
-    ++supers;
-    for (int j = 0; j < TRI_SUPER; ++j) {
-      const int c = sc * TRI_SUPER + j;
-      if (c >= nreal) break;  // padding leaves: empty boxes, no triangles
+  uint32_t tests = 0, entered = 0, hits = 0, boxes = 0, supers = 0;
+  // M is a multiple of 1024 and a block 128 threads: every warp is full
+  for (int g = 0; g < nsuper; g += L) {
+    float ts = INFINITY;
+    if (g + lane < nsuper) {
       ++boxes;
-      // the barrier also ends every thread's use of the previous chunk
-      if (!__syncthreads_or(slab_cap(cbb, nleaf, c, oi, rcp, abest))) continue;
-      stage_chunk(s, tri, ppad, c);
-      __syncthreads();
-      ++visits;
-      fold_chunk(s, c, oi, di, abest, best, hits);
+      ts = column_entry(sbb, nsuper, g + lane, oi, rcp);
+    }
+    unsigned left = (1u << L) - 1u;
+    for (;;) {
+      const unsigned want = group_bits<L>(__ballot_sync(FULL, ts <= abest)) & left;
+      if (!__any_sync(FULL, want != 0)) break;
+      const bool on = want != 0;
+      const int j = on ? __ffs(want) - 1 : 0;
+      left = on ? left & ~((2u << j) - 1u) : 0u;
+      supers += on;
+      for (int h = 0; h < TRI_SUPER; h += L) {
+        const int c0 = (g + j) * TRI_SUPER + h;
+        // a padding leaf (past the last real chunk) is skipped and unread
+        float te = INFINITY;
+        if (on && c0 + lane < nreal) {
+          ++boxes;
+          te = column_entry(cbb, nleaf, c0 + lane, oi, rcp);
+        }
+        walk_tri_chunks<L>(c0, te, lane, st, oi, di, abest, best, tests, entered, hits);
+      }
     }
   }
-  a_out[ray] = abest;
-  row_out[ray] = abest < FMAX ? best : -1;
+  if (lane == 0) {
+    a_out[ray] = abest;
+    row_out[ray] = abest < FMAX ? best : -1;
+  }
   if (!counts) return;
-  add_counts(counts, visits * CHUNK, visits, hits);
+  add_warp_sum(counts, tests);
+  add_warp_sum(counts + 1, lane == 0 ? entered : 0u);
+  add_warp_sum(counts + 2, hits);
   add_warp_sum(counts + 3, boxes);
-  if (threadIdx.x == 0) atomicAdd(counts + 4, static_cast<unsigned long long>(supers));
+  add_warp_sum(counts + 4, lane == 0 ? supers : 0u);
 }
 
 // ---------------------------------------------------------------------------
@@ -1022,6 +979,79 @@ __global__ void __launch_bounds__(AN_BLOCK)
   add_warp_sum(counts, tests);
   add_warp_sum(counts + 2, hits);
   if (lane == 0) atomicAdd(counts + 1, static_cast<unsigned long long>(visits));
+}
+
+// K5 for cones and quads, whose tests take hits behind the ray's origin: a
+// block skipped for one ray may hold a hit closer than its best, so no
+// gate finer than the plain version's decides as it does. One block is a
+// 1024-ray tile, one ray a thread; step k is taken where some ray of the
+// tile has tlo[k] < min(best, bound) (__syncthreads_or: the reference's
+// test against the tile's largest min(best, bound)), and then every ray
+// of the tile tests the block's 8 prims, with no per-ray box test, as
+// an_fold_plain does. The prims' rows are warp-wide broadcasts, as in
+// an_walk; the shape tests are K3a's masked ones (the same floats).
+template <int SHAPE>
+__global__ void __launch_bounds__(AN_TILE)
+    an_tile_walk(const float* __restrict__ o, const float* __restrict__ d, int M,
+                 const float* __restrict__ tab, const int* __restrict__ order,
+                 const float* __restrict__ tlo, int S, const float* __restrict__ bound,
+                 float* dist_out, int* row_out, float* a_out, int* dir_out,
+                 unsigned long long* counts) {
+  static_assert(takes_behind(SHAPE), "the other shapes walk per warp (an_walk)");
+  constexpr int TAB = TAB_ROWS * SUPB;
+  const int ray = blockIdx.x * AN_TILE + threadIdx.x;
+  const V3 ro = ray_at(o, M, ray);
+  const V3 rd = ray_at(d, M, ray);
+  const float bnd = bound[ray];
+  const int* ord = order + static_cast<size_t>(blockIdx.x) * S;
+  const float* ent = tlo + static_cast<size_t>(blockIdx.x) * S;
+  float bd = FMAX, ba = 0.0f;
+  int brow = -1, bdir = -1;
+  uint32_t tests = 0, visits = 0, hits = 0;
+  for (int k = 0; k < S; ++k) {
+    const float e = __ldg(ent + k);  // the same for every thread
+    if (!(e < INF)) break;           // unreachable blocks sort last
+    if (!__syncthreads_or(e < fminf(bd, bnd))) break;
+    ++visits;
+    const int b = __ldg(ord + k);
+    const float* t = tab + static_cast<size_t>(b) * TAB;
+#pragma unroll
+    for (int j = 0; j < SUPB; ++j) {
+      if (!(__ldg(t + 24 * SUPB + j) > 0.0f)) continue;  // the ok flag gates the take
+      ++tests;
+      float iv[12];
+#pragma unroll
+      for (int r = 0; r < 12; ++r) iv[r] = __ldg(t + r * SUPB + j);
+      const V3 oi = affine(iv, ro);
+      const V3 di = vnorm(linear(iv, rd), TINY);
+      float a;
+      int code;
+      const bool ok = group_shape<SHAPE>(oi, di, a, code);
+      if (!__any_sync(FULL, ok)) continue;
+      float tf[12];
+#pragma unroll
+      for (int r = 0; r < 12; ++r) tf[r] = __ldg(t + (12 + r) * SUPB + j);
+      if (!ok) continue;
+      ++hits;
+      const V3 pl = {oi.x + a * di.x, oi.y + a * di.y, oi.z + a * di.z};
+      const V3 e3 = sub(ro, affine(tf, pl));
+      const float dist = sqrtf(e3.x * e3.x + e3.y * e3.y + e3.z * e3.z);
+      if (dist < bd) {
+        bd = dist;
+        brow = b * SUPB + j;
+        ba = a;
+        bdir = code;
+      }
+    }
+  }
+  dist_out[ray] = bd;
+  row_out[ray] = brow;
+  a_out[ray] = ba;
+  dir_out[ray] = bdir;
+  if (!counts) return;
+  add_warp_sum(counts, tests);
+  add_warp_sum(counts + 2, hits);
+  if (threadIdx.x % 32 == 0) atomicAdd(counts + 1, static_cast<unsigned long long>(visits));
 }
 
 // ---------------------------------------------------------------------------
@@ -1199,12 +1229,24 @@ struct GroupCulledLaunch {
   }
 };
 
+// K5 by shape: the per-warp walk with its per-ray box gate (an_walk) where
+// every hit lies in front of the ray's origin, the tile walk
+// (an_tile_walk) for cones and quads; per_ray forces an_walk on them too,
+// the gate this kernel had for them before, which chip_smoke.py shows
+// differing from the plain version
 template <int SHAPE>
 struct AnLaunch {
   static void run(const float* o, const float* d, int M, const float* tab, const float* sbb,
                   int nblk, const int* order, const float* tlo, int S, const float* bound,
                   float* dist, int* row, float* a, int* dir, unsigned long long* counts,
-                  cudaStream_t stream) {
+                  bool per_ray, cudaStream_t stream) {
+    if constexpr (takes_behind(SHAPE)) {
+      if (!per_ray) {
+        an_tile_walk<SHAPE><<<M / AN_TILE, AN_TILE, 0, stream>>>(o, d, M, tab, order, tlo, S,
+                                                                 bound, dist, row, a, dir, counts);
+        return;
+      }
+    }
     an_walk<SHAPE><<<M / AN_BLOCK, AN_BLOCK, 0, stream>>>(o, d, M, tab, sbb, nblk, order, tlo, S,
                                                           bound, dist, row, a, dir, counts);
   }
@@ -1277,28 +1319,52 @@ extern "C" int mesh_best(const void* o, const void* d, int M, const void* tri, i
 }
 
 // K4b. As K4a, plus cbb: [6, 16 * nsuper] f32 leaf boxes (ppad / 128 of
-// them real) and sbb: [6, nsuper] f32 super boxes.
+// them real), sbb: [6, nsuper] f32 super boxes, st: [ppad, 12] f32 scratch
+// for the staged triangles, and lanes a ray (4, 8 or 16; 0: TRI_LANES).
 extern "C" int mesh_best_culled(const void* o, const void* d, int M, const void* tri, int ppad,
-                                const void* cbb, const void* sbb, int nsuper, void* a, void* row,
-                                void* counts, void* stream) {
+                                const void* cbb, const void* sbb, int nsuper, void* st, int lanes,
+                                void* a, void* row, void* counts, void* stream) {
   if (bad_rays(M, AN_TILE) || ppad <= 0 || ppad % CHUNK || nsuper <= 0 ||
       ppad / CHUNK > nsuper * TRI_SUPER)
     return cudaErrorInvalidValue;
-  tri_culled_kernel<<<M / CHUNK, CHUNK, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(o), static_cast<const float*>(d), M,
-      static_cast<const float*>(tri), ppad, static_cast<const float*>(cbb),
-      static_cast<const float*>(sbb), nsuper, static_cast<float*>(a), static_cast<int*>(row),
-      static_cast<unsigned long long*>(counts));
+  if (lanes == 0) lanes = TRI_LANES;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  StagedTri* rec = static_cast<StagedTri*>(st);
+  stage_tri_records<<<ppad / CHUNK, CHUNK, 0, s>>>(static_cast<const float*>(tri), ppad, rec);
+  const float* fo = static_cast<const float*>(o);
+  const float* fd = static_cast<const float*>(d);
+  const float* fc = static_cast<const float*>(cbb);
+  const float* fs = static_cast<const float*>(sbb);
+  float* fa = static_cast<float*>(a);
+  int* ir = static_cast<int*>(row);
+  unsigned long long* cnt = static_cast<unsigned long long*>(counts);
+  switch (lanes) {
+    case 4:
+      tri_culled_kernel<4><<<M / CHUNK * 4, CHUNK, 0, s>>>(fo, fd, M, rec, ppad, fc, fs, nsuper,
+                                                           fa, ir, cnt);
+      break;
+    case 8:
+      tri_culled_kernel<8><<<M / CHUNK * 8, CHUNK, 0, s>>>(fo, fd, M, rec, ppad, fc, fs, nsuper,
+                                                           fa, ir, cnt);
+      break;
+    case 16:
+      tri_culled_kernel<16><<<M / CHUNK * 16, CHUNK, 0, s>>>(fo, fd, M, rec, ppad, fc, fs,
+                                                             nsuper, fa, ir, cnt);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K5. o, d: [3, M] f32 (M a multiple of 1024); tab: [nblk, 25, 8] f32;
 // sbb: [6, nblk] f32 block boxes; order: [M/1024, S] i32 block ids; tlo:
-// [M/1024, S] f32 ascending per row; bound: [M] f32; outputs [M].
+// [M/1024, S] f32 ascending per row; bound: [M] f32; outputs [M]; per_ray
+// nonzero: the per-ray gate for cones and quads too (AnLaunch).
 extern "C" int an_fold(const void* o, const void* d, int M, const void* tab, const void* sbb,
                        int nblk, const void* order, const void* tlo, int S, const void* bound,
                        int shape, void* dist, void* row, void* a, void* dir, void* counts,
-                       void* stream) {
+                       int per_ray, void* stream) {
   if (bad_rays(M, AN_TILE) || nblk <= 0 || S <= 0) return cudaErrorInvalidValue;
   return by_shape<AnLaunch>(
       shape, static_cast<const float*>(o), static_cast<const float*>(d), M,
@@ -1306,7 +1372,7 @@ extern "C" int an_fold(const void* o, const void* d, int M, const void* tab, con
       static_cast<const int*>(order),
       static_cast<const float*>(tlo), S, static_cast<const float*>(bound),
       static_cast<float*>(dist), static_cast<int*>(row), static_cast<float*>(a),
-      static_cast<int*>(dir), static_cast<unsigned long long*>(counts),
+      static_cast<int*>(dir), static_cast<unsigned long long*>(counts), per_ray != 0,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -1325,10 +1391,24 @@ extern "C" int mesh_fold(const void* o, const void* d, int M, const void* tri, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// A compiled trace kernel: K3a (kernel 0) or K3b (2) of a shape code, K4a
-// (1) or K6 (3). out = {registers a thread, local memory bytes a thread
-// (spills), static shared memory bytes a block, resident blocks per SM,
-// threads a block, lanes a ray}.
+// K5's kernel of a shape, and its threads a block
+template <int SHAPE>
+struct AnKernel {
+  static const void* get(int& threads) {
+    if constexpr (takes_behind(SHAPE)) {
+      threads = AN_TILE;
+      return reinterpret_cast<const void*>(an_tile_walk<SHAPE>);
+    } else {
+      threads = AN_BLOCK;
+      return reinterpret_cast<const void*>(an_walk<SHAPE>);
+    }
+  }
+};
+
+// A compiled trace kernel: K3a (kernel 0), K3b (2) or K5 (5) of a shape
+// code, K4a (1), K6 (3) or K4b (4, its default lanes). out = {registers a
+// thread, local memory bytes a thread (spills), static shared memory bytes
+// a block, resident blocks per SM, threads a block, lanes a ray}.
 extern "C" int trace_kernel_info(int kernel, int shape, int* out) {
   const void* fn = nullptr;
   int threads = CHUNK, lanes = 1;
@@ -1337,6 +1417,18 @@ extern "C" int trace_kernel_info(int kernel, int shape, int* out) {
   } else if (kernel == 3) {
     fn = reinterpret_cast<const void*>(mesh_walk);
     lanes = WALK_LANES;
+  } else if (kernel == 4) {
+    fn = reinterpret_cast<const void*>(tri_culled_kernel<TRI_LANES>);
+    lanes = TRI_LANES;
+  } else if (kernel == 5) {
+    switch (shape) {
+      case SPHERE: fn = AnKernel<SPHERE>::get(threads); break;
+      case CUBE: fn = AnKernel<CUBE>::get(threads); break;
+      case CYLINDER: fn = AnKernel<CYLINDER>::get(threads); break;
+      case CONE: fn = AnKernel<CONE>::get(threads); break;
+      case QUAD: fn = AnKernel<QUAD>::get(threads); break;
+      default: return cudaErrorInvalidValue;
+    }
   } else if (kernel == 0 || kernel == 2) {
     const bool culled = kernel == 2;
     switch (shape) {

@@ -143,6 +143,9 @@ def _bind_megakernel(lib):
     lib.mega_pass.argtypes = [p, p, p, ctypes.c_uint32, p, i, p, i, p,
                               p, i, i, i, i, i, p, p]
     lib.mega_pass.restype = ctypes.c_int
+    # has_transparent, cull, P, S, out [6] i32
+    lib.mega_kernel_info.argtypes = [i, i, i, i, p]
+    lib.mega_kernel_info.restype = ctypes.c_int
     lib.mega_error_string.argtypes = [ctypes.c_int]
     lib.mega_error_string.restype = ctypes.c_char_p
 
@@ -192,18 +195,20 @@ def _bind_trace_kernels(lib):
                                       p, p, p, p]
     # o, d, M, tri, ppad, a, row, counts, stream
     lib.mesh_best.argtypes = [p, p, i, p, i, p, p, p, p]
-    # o, d, M, tri, ppad, cbb, sbb, nsuper, a, row, counts, stream
-    lib.mesh_best_culled.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p]
+    # o, d, M, tri, ppad, cbb, sbb, nsuper, st, lanes, a, row, counts,
+    # stream
+    lib.mesh_best_culled.argtypes = [p, p, i, p, i, p, p, i, p, i, p, p, p,
+                                     p]
     # o, d, M, tab, sbb, nblk, order, tlo, S, bound, shape, dist, row,
-    # a, dir, counts, stream
+    # a, dir, counts, per_ray, stream
     lib.an_fold.argtypes = [p, p, i, p, p, i, p, p, i, p, i, p, p, p, p,
-                            p, p]
+                            p, i, p]
     # o, d, M, tri, ppad, order, tlo, S, bound, a, row, counts, stream
     lib.mesh_fold.argtypes = [p, p, i, p, i, p, p, i, p, p, p, p, p]
     for fn in (lib.group_best, lib.group_best_culled, lib.mesh_best,
                lib.mesh_best_culled, lib.an_fold, lib.mesh_fold):
         fn.restype = ctypes.c_int
-    # kernel (0 K3a, 1 K4a, 2 K3b, 3 K6), shape, out [6] i32
+    # kernel (0 K3a, 1 K4a, 2 K3b, 3 K6, 4 K4b, 5 K5), shape, out [6] i32
     lib.trace_kernel_info.argtypes = [i, i, p]
     lib.trace_kernel_info.restype = ctypes.c_int
     lib.trace_error_string.argtypes = [ctypes.c_int]

@@ -302,16 +302,6 @@ def _fold_table(tab, sbb, groups, cull, ordr_ray, o, d, win):
                 _prim_work(code, col, o, d, win, gate)
 
 
-def _trace_fold(inp, ordr_ray, o, d, n_prev, p_prev):
-    """Fold every analytic prim into per-ray winner attributes. Returns
-    (is_hit, N, P, shin, rough, emis, col3, alpha); on a miss N, P keep
-    (n_prev, p_prev), the GLSL stale-output semantics that the refraction
-    re-trace relies on (tp/montecarlo.frag:150-152)."""
-    win = _new_win(o, n_prev, p_prev)
-    _fold_table(inp.tab, inp.sbb, inp.groups, inp.cull, ordr_ray, o, d, win)
-    return _win_result(win)
-
-
 def _bounce_step(trace_fn, has_transparent, ior,
                  o, d, attenu, total, result, done, state):
     """One bounce of tp/montecarlo.frag:109-176 (reference
@@ -427,12 +417,88 @@ def _bounce_step(trace_fn, has_transparent, ior,
 # one pass: plain version, kernel wrapper, route
 # --------------------------------------------------------------------------
 
+class K1Need:
+    """The work the inputs of one K1 pass need, counted by
+    `mega_pass_reference` from each trace's final best world distance, not
+    from any walk (so no design of K1 can come in under it). Over the n
+    real rays:
+      - `steps`: bounce steps (shading), one per ray in flight and bounce;
+        `path` [n] the steps of each ray;
+      - `traced`: traces (the bounce's own and, on transparent scenes, the
+        refraction re-trace of each refracting ray); `hits`: those that
+        hit, one hit point and normal each;
+      - `prim` {shape code: ray-prim tests}: without the cull every real
+        prim of the table per trace; with it, the real prims whose box the
+        ray enters within its final best, inside a super box it enters so;
+      - `box` (cull only): slab tests, every super box per trace and the
+        real prims' boxes of each super entered.
+    The slab test is the fold's (`_slab`: |d|-scaled, along the whole
+    line for quads and cones). Counts are int64 scalars on the rays'
+    device. With keep=True, `traces` also keeps each trace's (o, d, lanes,
+    best) rows of the real rays."""
+
+    def __init__(self, inp: MegaInputs, keep: bool = False, step: int = 64):
+        dev = inp.dirs.device
+        z = torch.zeros((), dtype=torch.int64, device=dev)
+        self.steps, self.traced, self.hits, self.box = (
+            z.clone() for _ in range(4))
+        self.prim = {code: z.clone() for code, *_ in inp.groups}
+        self.path = torch.zeros(inp.n, dtype=torch.int64, device=dev)
+        self.traces = [] if keep else None
+        self._step = step
+
+    def add_step(self, inp: MegaInputs, active):
+        a = active[:inp.n]
+        self.steps += a.sum()
+        self.path += a
+
+    def add_trace(self, inp: MegaInputs, o, d, lanes, best):
+        n = inp.n
+        lanes, best = lanes[:n], best[:n]
+        o = tuple(x[:n] for x in o)
+        d = tuple(x[:n] for x in d)
+        if self.traces is not None:
+            self.traces.append((tuple(x.clone() for x in o),
+                                tuple(x.clone() for x in d), lanes, best))
+        self.traced += lanes.sum()
+        self.hits += (lanes & (best < _FMAX)).sum()
+        real = inp.tab[31] > 0
+        if not inp.cull:
+            for code, start, count, _ in inp.groups:
+                self.prim[code] += lanes.sum() * real[start:start + count].sum()
+            return
+        rd = (safe_rcp(d[0]), safe_rcp(d[1]), safe_rcp(d[2]))
+        dl = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+        o1, rd1 = [x[:, None] for x in o], [x[:, None] for x in rd]
+        dl1, best1 = dl[:, None], best[:, None]
+        for code, start, count, sstart in inp.groups:
+            behind = code in HITS_BEHIND
+            nsup = -(-count // MEGA_SUPER)
+            sup = torch.cat([
+                _slab(inp.sbb[:, None, c:min(c + self._step, sstart + nsup)],
+                      o1, rd1, dl1, best1, behind)
+                for c in range(sstart, sstart + nsup, self._step)], dim=1)
+            sup &= lanes[:, None]                           # [n, nsup]
+            self.box += lanes.sum() * nsup
+            cols = torch.arange(count, device=best.device)[real[start:
+                                                                start + count]]
+            for c in range(0, cols.numel(), self._step):
+                cc = cols[c:c + self._step]
+                inside = sup[:, cc // MEGA_SUPER]
+                self.box += inside.sum()
+                enter = _slab(inp.tab[32:38, None, start + cc], o1, rd1, dl1,
+                              best1, behind) & inside
+                self.prim[code] += enter.sum()
+
+
 def mega_pass_reference(inp: MegaInputs, seed: int, nb_bounces: int,
-                        alive=None) -> torch.Tensor:
+                        alive=None, need: Optional[K1Need] = None
+                        ) -> torch.Tensor:
     """Plain PyTorch version of K1 (reference `_mega_kernel`,
     megakernel.py:541-582) on any device. Returns rgb [n, 3]. `alive`, a
     list if given, gets the number of real rays still in flight at the
-    start of each bounce appended (a device sync each)."""
+    start of each bounce appended (a device sync each); `need`, a K1Need,
+    gets the pass's work counted into it."""
     d = (inp.dirs[:, 0], inp.dirs[:, 1], inp.dirs[:, 2])
     z = torch.zeros_like(d[0])
     o = (z + inp.fpar[0], z + inp.fpar[1], z + inp.fpar[2])
@@ -445,8 +511,16 @@ def mega_pass_reference(inp: MegaInputs, seed: int, nb_bounces: int,
     if inp.cull:
         ordr_ray = inp.ordr[:, 0, :].long().repeat_interleave(TILE, dim=0)
 
-    def trace_fn(o, d, n_prev, p_prev, _lanes):
-        return _trace_fold(inp, ordr_ray, o, d, n_prev, p_prev)
+    def trace_fn(o, d, n_prev, p_prev, lanes):
+        # the closest hit: on a miss N, P keep (n_prev, p_prev), the GLSL
+        # stale-output semantics the refraction re-trace relies on
+        # (tp/montecarlo.frag:150-152)
+        win = _new_win(o, n_prev, p_prev)
+        _fold_table(inp.tab, inp.sbb, inp.groups, inp.cull, ordr_ray, o, d,
+                    win)
+        if need is not None:
+            need.add_trace(inp, o, d, lanes, win[0])
+        return _win_result(win)
 
     attenu = (z + 0.8, z + 0.8, z + 0.8)   # vec3(0.8) (:106-107)
     total = (z, z, z)
@@ -455,6 +529,8 @@ def mega_pass_reference(inp: MegaInputs, seed: int, nb_bounces: int,
     for _ in range(nb_bounces):
         if alive is not None:
             alive.append(int((~done[:inp.n]).sum()))
+        if need is not None:
+            need.add_step(inp, ~done)
         o, d, attenu, total, result, done, state = _bounce_step(
             trace_fn, inp.has_transparent, ior,
             o, d, attenu, total, result, done, state)
@@ -523,6 +599,24 @@ def k1_launch(inp: MegaInputs, seed: int, nb_bounces: int) -> torch.Tensor:
 
 
 k1_launch.launches = 0
+
+
+def k1_kernel_info(inp: MegaInputs) -> dict:
+    """The compiled K1 variant that `k1_launch` runs on these inputs, from
+    the CUDA runtime: registers and local memory (spill) bytes a thread,
+    static and dynamic shared memory a block, resident blocks per SM and
+    threads a block. Needs the card."""
+    lib = kernels.megakernel_lib()
+    out = (ctypes.c_int * 6)()
+    err = lib.mega_kernel_info(int(inp.has_transparent), int(inp.cull),
+                               inp.tab.shape[1],
+                               inp.sbb.shape[1] if inp.cull else 0, out)
+    if err != 0:
+        raise RuntimeError(
+            f"K1 kernel info failed: {lib.mega_error_string(err).decode()}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "blocks_per_sm", "threads", "dynamic_shared_bytes"),
+                    out))
 
 
 def mega_pass(inp: MegaInputs, seed: int, nb_bounces: int) -> torch.Tensor:

@@ -486,13 +486,13 @@ mesh_best_rows.launches = 0
 
 
 def trace_kernel_info(kernel: str, shape_code: int = 1) -> dict:
-    """The compiled K3a or K3b (of `shape_code`), K4a or K6, from the CUDA
-    runtime: registers and local memory (spill) bytes a thread, static
-    shared memory a block, resident blocks per SM, threads a block and
-    lanes a ray. Needs the card."""
+    """The compiled K3a, K3b or K5 (of `shape_code`), K4a, K4b or K6, from
+    the CUDA runtime: registers and local memory (spill) bytes a thread,
+    static shared memory a block, resident blocks per SM, threads a block
+    and lanes a ray. Needs the card."""
     lib = kernels.trace_kernels_lib()
     out = (ctypes.c_int * 6)()
-    kid = {"K3a": 0, "K4a": 1, "K3b": 2, "K6": 3}[kernel]
+    kid = {"K3a": 0, "K4a": 1, "K3b": 2, "K6": 3, "K4b": 4, "K5": 5}[kernel]
     err = lib.trace_kernel_info(kid, int(shape_code), out)
     raise_on_error(kernel, lib, err)
     return dict(zip(("registers", "local_bytes", "shared_bytes",
@@ -505,8 +505,8 @@ def mesh_best_rows_culled(o, d, tri, cbb, sbb=None, work=None):
     the last real chunk) and sbb [6, nsuper] super boxes; sbb None makes
     `super_boxes`. Returns (a, row), each [M], the brute fold's winners.
     `work`, an int64 [5] CUDA tensor, gets the launch's ray-triangle
-    tests, leaf chunks entered by blocks, triangles hit, ray-box tests
-    and supers entered by blocks added to it."""
+    tests (over a ray's lanes), (ray, leaf chunk) pairs folded, triangles
+    hit, ray-box tests and (ray, super) pairs entered added to it."""
     if sbb is None:
         cbb, sbb = super_boxes(cbb)
     m, ppad = o.shape[1], tri.shape[1]
@@ -525,9 +525,12 @@ def mesh_best_rows_culled(o, d, tri, cbb, sbb=None, work=None):
 mesh_best_rows_culled.launches = 0
 
 
-def mesh_best_culled(o, d, tri, cbb, sbb, work=None):
+def mesh_best_culled(o, d, tri, cbb, sbb, work=None, lanes=None):
     """Launch K4b on the inputs of `mesh_best_rows_culled` (super boxes
-    made), counting the launch on that wrapper."""
+    made), counting the launch on that wrapper: each ray gated on its own
+    best through the supers and leaves, `lanes` (4, 8 or 16; None: the
+    kernel's TRI_LANES) lanes a ray. The kernel first stages the
+    triangles (corner and edges) into a scratch buffer allocated here."""
     m, ppad = o.shape[1], tri.shape[1]
     nsuper = sbb.shape[1]
     dev = o.device
@@ -537,13 +540,16 @@ def mesh_best_culled(o, d, tri, cbb, sbb, work=None):
         "cbb": (cbb, _F32, (6, TRI_SUPER * nsuper)),
         "sbb": (sbb, _F32, (6, nsuper))})
     counts = check_work("K4b", work, dev, 5)
+    if lanes not in (None, 4, 8, 16):
+        raise ValueError(f"K4b: {lanes} lanes a ray")
     a = torch.empty((m,), dtype=_F32, device=dev)
     row = torch.empty((m,), dtype=_I32, device=dev)
+    staged = torch.empty((ppad, 12), dtype=_F32, device=dev)
     lib = kernels.trace_kernels_lib()
     err = lib.mesh_best_culled(
         o.data_ptr(), d.data_ptr(), m, tri.data_ptr(), ppad, cbb.data_ptr(),
-        sbb.data_ptr(), nsuper, a.data_ptr(), row.data_ptr(), counts,
-        torch.cuda.current_stream(dev).cuda_stream)
+        sbb.data_ptr(), nsuper, staged.data_ptr(), lanes or 0, a.data_ptr(),
+        row.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K4b", lib, err)
     mesh_best_rows_culled.launches += 1
     return a, row

@@ -192,10 +192,15 @@ def group_best_rows_sparse(o, d, shape_code, inv_r, trf_r, pid, sup_bb,
 
 
 def an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, sup_bb,
-            work=None):
+            work=None, per_ray=False):
     """Launch K5 on the inputs of `an_inputs` and the blocks' boxes
-    sup_bb [6, nblk], which the kernel tests per ray (the plain version
-    keeps the reference's tile-wide prune alone)."""
+    sup_bb [6, nblk]. For spheres, cubes and cylinders each warp walks on
+    its own and tests each block's box per ray (exact: their hits lie in
+    front of the ray's origin); for cones and quads a 1024-ray tile walks
+    as one, every ray testing every block the tile-wide prune admits, as
+    the plain version does. `per_ray` forces the per-ray gate on cones and
+    quads too, which may miss a hit behind the origin (chip_smoke.py
+    prints how many rows it differs on)."""
     dev = o.device
     m = o.shape[1]
     nt, s = order.shape
@@ -217,7 +222,8 @@ def an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, sup_bb,
         o.data_ptr(), d.data_ptr(), m, tab.data_ptr(), sup_bb.data_ptr(),
         nblk, order.data_ptr(), tlo_sorted.data_ptr(), s, bound.data_ptr(),
         int(shape_code), dist.data_ptr(), row.data_ptr(), a.data_ptr(),
-        dircode.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream)
+        dircode.data_ptr(), counts, int(per_ray),
+        torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K5", lib, err)
     group_best_rows_sparse.launches += 1
     return dist, row, a, dircode

@@ -89,6 +89,7 @@ def _lanes(name):
 
 WALK_LANES = _lanes("WALK_LANES")
 CULL_LANES = _lanes("CULL_LANES")
+TRI_LANES = _lanes("TRI_LANES")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -646,3 +647,152 @@ def test_k3b_bound_counts_supers_from_the_inputs():
             tests += int(enter.sum()) * int(per_chunk[c])
     assert got == [tests, int((out[1] >= 0).sum()), boxes]
     assert 0 < tests < M * int(per_chunk.sum()) and boxes < M * box.shape[1]
+
+
+# --------------------------------------------------------------------------
+# K4b
+# --------------------------------------------------------------------------
+
+def _first(want):
+    """(rays with a wanted lane, its lowest wanted lane)."""
+    on = want.any(dim=1)
+    return on, torch.where(on, want.int().argmax(dim=1), 0)
+
+
+def _fold_tris(o, d, staged, c, on, lanes, abest, best):
+    """K4b's fold of leaf chunk c [M] for the rays `on` [M]: lane j folds
+    triangles j, j + L, ... of the staged chunk (the corner and the edges)
+    behind the warp-wide gate on u; a ray off the walk tests chunk 0 and
+    drops it. Its L lanes reduce (a, index) to the lexicographic minimum;
+    the result merges strictly closer into (abest, best)."""
+    A, E1, E2 = staged
+    m = o.shape[1]
+    ox, oy, oz = (o[k][:, None] for k in range(3))
+    dx, dy, dz = (d[k][:, None] for k in range(3))
+    lane = torch.arange(lanes)
+    ray_on = on[:, None]
+    ca = torch.full((m, lanes), FMAX, dtype=torch.float32)
+    ct = torch.full((m, lanes), CHUNK, dtype=torch.int64)
+    for i in range(CHUNK // lanes):
+        t = lane[None, :] + i * lanes                              # [1, L]
+        col = c[:, None] * CHUNK + t                               # [M, L]
+        ax, ay, az = A[:, col]
+        e1x, e1y, e1z = E1[:, col]
+        e2x, e2y, e2z = E2[:, col]
+        hx = dy * e2z - dz * e2y
+        hy = dz * e2x - dx * e2z
+        hz = dx * e2y - dy * e2x
+        det = e1x * hx + e1y * hy + e1z * hz
+        ok = torch.abs(det) >= EPS
+        invd = 1.0 / torch.where(ok, det, 1.0)
+        sx, sy, sz = ox - ax, oy - ay, oz - az
+        u = (sx * hx + sy * hy + sz * hz) * invd
+        pas = ray_on & ok & (u >= 0.0) & (u <= 1.0)
+        gate = _warp_any(pas)
+        qx = sy * e1z - sz * e1y
+        qy = sz * e1x - sx * e1z
+        qz = sx * e1y - sy * e1x
+        v = (dx * qx + dy * qy + dz * qz) * invd
+        a = (e2x * qx + e2y * qy + e2z * qz) * invd
+        take = (gate & pas & (v >= 0.0) & (u + v <= 1.0) & (a > EPS)
+                & (a < ca))
+        ca = torch.where(take, a, ca)
+        ct = torch.where(take, t, ct)
+    cmin, first = _butterfly(ca, ct)
+    take = on & (cmin < abest)
+    return (torch.where(take, cmin, abest),
+            torch.where(take, c * CHUNK + first, best))
+
+
+def tri_culled_mirror(o, d, tri, cbb, sbb, stats=None):
+    """K4b's fold: (a, row) per ray. Each ray tests the super boxes g .. g
+    + L - 1 once, one a lane (its entry te, +inf where it misses), and
+    takes those with te <= its best a, ascending; in each it tests the
+    super's leaf boxes L at a time (a padding leaf, past the last real
+    chunk, is never tested) and walks the leaves it enters so, each gate
+    reading the best its walk has reached. `stats`, a dict, gets the
+    (ray, leaf) pairs folded and the (ray, super) pairs entered."""
+    lanes = TRI_LANES
+    A, E1, E2, _ = brute.stage_tris(tri)
+    m = o.shape[1]
+    nreal = tri.shape[1] // CHUNK
+    nsup, nleaf = sbb.shape[1], cbb.shape[1]
+    o3, rd = o[:, :, None], safe_rcp(d)[:, :, None]
+    lane = torch.arange(lanes)
+    abest = torch.full((m,), FMAX, dtype=torch.float32)
+    best = torch.full((m,), -1, dtype=torch.int64)
+    folded = supers = 0
+    for g in range(0, nsup, lanes):
+        cols = (g + lane).expand(m, lanes)
+        ts = torch.where(cols < nsup, _entry(
+            o3, rd, sbb[:, cols.clamp(max=nsup - 1)]), INF)
+        sleft = torch.ones((m, lanes), dtype=torch.bool)
+        while True:
+            want = (ts <= abest[:, None]) & sleft
+            if not want.any():
+                break
+            son, sj = _first(want)
+            supers += int(son.sum())
+            sleft = son[:, None] & sleft & (lane[None, :] > sj[:, None])
+            for h in range(0, pt.TRI_SUPER, lanes):
+                c0 = (g + sj) * pt.TRI_SUPER + h
+                cols = c0[:, None] + lane[None, :]
+                te = torch.where(son[:, None] & (cols < nreal), _entry(
+                    o3, rd, cbb[:, cols.clamp(max=nleaf - 1)]), INF)
+                left = torch.ones((m, lanes), dtype=torch.bool)
+                while True:
+                    want = (te <= abest[:, None]) & left
+                    if not want.any():
+                        break
+                    on, j = _first(want)
+                    folded += int(on.sum())
+                    left = on[:, None] & left & (lane[None, :] > j[:, None])
+                    abest, best = _fold_tris(
+                        o, d, (A, E1, E2), torch.where(on, c0 + j, 0), on,
+                        lanes, abest, best)
+    if stats is not None:
+        stats.update(folded=folded, supers=supers)
+    return abest, torch.where(abest < FMAX, best, -1).to(torch.int32)
+
+
+def _k4b_case(mesh_demo, case):
+    """(o, d, tri, cbb, sbb): a mesh_demo instance with compile_scene's
+    leaf and super boxes (or, with "_none", sbb=None's always-pass supers
+    over the leaves padded to a super), or the tie case (duplicates in a
+    chunk and across chunks, a zero triangle, rays that hit nothing) under
+    sbb=None, whose 3 real chunks sit under 13 padding leaves."""
+    if case == "ties":
+        tri, _, o, d = _tie_case()
+        cbb = chip_smoke._tri_chunk_boxes(tri, (tri != 0).any(dim=0))
+        return (o, d, tri, *pt.super_boxes(cbb))
+    i = int(case[len("instance")])
+    tri, _, o, d = brute._instance(mesh_demo, i)
+    dev = mesh_demo[0]
+    cbb, sbb = dev.mesh_chunk_bb[i], dev.mesh_super_bb[i]
+    return (o, d, tri, *(pt.super_boxes(cbb) if case.endswith("_none")
+                         else (cbb, sbb)))
+
+
+@pytest.mark.parametrize("case", ["instance0", "instance1", "instance2",
+                                  "instance0_none", "ties"])
+def test_tri_culled_mirror_equals_plain(mesh_demo, case):
+    """K4b's fold on each mesh_demo instance, with sbb=None and on the tie
+    case: (a, row) bit-equal to mesh_best_rows_culled_plain (and to the
+    brute mesh_best_rows_plain); rays skip leaves and supers; with ties the
+    lower triangle wins in a chunk and across chunks, and the zero
+    triangle never does."""
+    o, d, tri, cbb, sbb = _k4b_case(mesh_demo, case)
+    stats = {}
+    got = tri_culled_mirror(o, d, tri, cbb, sbb, stats=stats)
+    ref = pt.mesh_best_rows_culled_plain(o, d, tri, cbb, sbb)
+    brute._assert_bits(got, ref, f"K4b {case}")
+    brute._assert_bits(got, pt.mesh_best_rows_plain(o, d, tri),
+                       f"K4b {case} vs brute")
+    row = ref[1].numpy()
+    assert 0.002 < (row >= 0).mean() < 0.95
+    nreal = tri.shape[1] // CHUNK
+    assert 0 < stats["folded"] < o.shape[1] * nreal
+    if case == "ties":
+        assert not np.isin(row, [7, 100]).any()
+        assert not ((row >= 150) & (row < 190)).any()
+        assert ((row < 40) & (row >= 0)).any()
