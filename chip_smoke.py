@@ -1,12 +1,13 @@
 """GPU smoke of the PyTorch/CUDA port: build every kernel, hold each one
 against its plain PyTorch version, and drive every ported path once.
 
-    python3 chip_smoke.py [--only k1|trace]
+    python3 chip_smoke.py [--only k1|trace|dense]
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
-and prints no result, without them. Phases (about 9 minutes in all on an
-H100, the builds included; `--only k1` runs phases 1-3 with K1 built
-alone, `--only trace` phases 1 and 7 with the trace kernels built alone):
+and prints no result, without them. Phases (about 10 minutes in all on
+an H100, the builds included; `--only k1` runs phases 1-3 with K1 built
+alone, `--only trace` phases 1 and 7 with the trace kernels built alone,
+`--only dense` phases 1 and 13 with K1 and the trace kernels built):
 
 1. the card's name and power limit; build K1 (csrc/megakernel.cu), K2
    (csrc/bounce_kernel.cu, and its counting build for the work counters)
@@ -126,17 +127,34 @@ alone, `--only trace` phases 1 and 7 with the trace kernels built alone):
 12. the trace kernels built with FMA contraction (without kernels.
    EXTRA_FLAGS' -fmad=false) against the default build, on the recorded
    launches of phases 7 and 9-11: time per launch and the distances'
-   move.
+   move;
+13. the dense route and the carousel's other integrators: box_diffuse
+   at 800x600, 3 bounces, through Renderer.advance with
+   RenderConfig(use_kernels=False) over a 4-pass window (no kernel
+   launched; rays/s, device busy time and idle share under
+   torch.profiler) and one full-size pass against the megakernel
+   route's under the megakernel protocol; montecarlo_aos with
+   use_kernels=True, one pass of colonnes 800x600x6 (K3a, 96 launches)
+   and of mesh_demo 800x600x8 at IOR 1.3 (K4a, 192 launches) through its
+   AoS trace (ops/trace.trace): the launch counts, the image against the
+   same integrator with kernels off under the megakernel protocol, the
+   kernel's time per launch and by bounce with its work and bound, and
+   every launch of the pass against the plain version bit for bit (rows,
+   distances or a, K3a's a and dircode; the rows that differ printed);
+   montecarlo_mat and montecarlo_mat_tr on box_diffuse 800x600, one pass
+   each, finite and launching nothing.
 
 The last three lines are a {"kernels": [...]} JSON object (K1 on each
 window, K5's tile walk on the cone and quad groups beside its colonnes
-path), the card's name and power limit, and the {"ok": true, "device":
-{...}} JSON object.
+path, K3a and K4a on the AoS route of phase 13 beside their brute
+pallas-trace paths), the card's name and power limit, and the {"ok":
+true, "device": {...}} JSON object.
 Every check raises, so any failed phase exits non-zero.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -1335,15 +1353,16 @@ def _plain_vs_kernel(kid, rec, n=8, sub=None):
     return float(np.mean(plain_ms)), float(np.mean(kern_ms)), err
 
 
-def _check_trace(what, ref, got):
-    """Hold (dist, row) of two folds to the trace protocol; print and
-    return the max abs distance error."""
+def _check_trace(what, ref, got, verbose=True):
+    """Hold (dist, row) of two folds to the trace protocol; print (unless
+    not `verbose`) and return the max abs distance error."""
     ref = (ref[0].cpu().numpy(), ref[1].cpu().numpy())
     got = (got[0].cpu().numpy(), got[1].cpu().numpy())
     frac, bad, rel, err = trace_match(*ref, *got)
-    print(f"{what}: rows equal {frac:.5f}, differing rows without equal "
-          f"distance {bad}, max rel err {rel:.2e}, max abs err {err:.3e}, "
-          f"hits {(ref[1] >= 0).mean():.4f}", flush=True)
+    if verbose:
+        print(f"{what}: rows equal {frac:.5f}, differing rows without equal "
+              f"distance {bad}, max rel err {rel:.2e}, max abs err "
+              f"{err:.3e}, hits {(ref[1] >= 0).mean():.4f}", flush=True)
     assert_trace_protocol(ref, got, what)
     return err
 
@@ -1402,16 +1421,17 @@ def _bits_t(x):
         else x.to(torch.int32)
 
 
-def _check_exact(what, ref, got, every=False):
+def _check_exact(what, ref, got, every=False, verbose=True):
     """_check_trace, and rows equal on EXACT_ROWS of the rays with equal
     distances where the rows are equal; with `every`, the fold's other
     outputs (K3a's a and dircode) bit-equal there too. Prints how many rows
-    differ."""
-    err = _check_trace(what, ref, got)
+    differ unless not `verbose`."""
+    err = _check_trace(what, ref, got, verbose)
     rr, gr = ref[1].cpu().numpy(), got[1].cpu().numpy()
     same = rr == gr
-    print(f"{what}: {int((~same).sum())} of {same.size} rows differ",
-          flush=True)
+    if verbose:
+        print(f"{what}: {int((~same).sum())} of {same.size} rows differ",
+              flush=True)
     outs = (0,) + (tuple(range(2, len(ref))) if every else ())
     if same.mean() < EXACT_ROWS or not all(np.array_equal(
             _bits(ref[i])[same], _bits(got[i])[same]) for i in outs):
@@ -2323,6 +2343,220 @@ def print_k1_sass():
                   flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the dense route and the carousel's other integrators
+# ---------------------------------------------------------------------------
+
+def phase_dense_route(device, w=800, h=600, bounces=3, window=4,
+                      tile_rays=1 << 17):
+    """box_diffuse at w x h through the dense route (RenderConfig(
+    use_kernels=False), torch ops only) and Renderer.advance: no kernel
+    launched over the window, rays/s, the device's busy time per pass and
+    idle share (torch.profiler over one pass), the image; then one
+    full-size pass against the megakernel route's (K1) under the
+    megakernel protocol."""
+    dev = compile_scene(scenes.build("box_diffuse"), device=device)
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       tile_rays=tile_rays, passes_per_call=window,
+                       use_kernels=False, device=device)
+    r = Renderer(dev, cfg)
+    r.advance(1)                            # warm-up pass
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.advance(1 + window)                   # synchronizes before returning
+    window_s = time.perf_counter() - t0
+    counts = _all_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the dense route launched kernels: {counts}")
+    img = r.image()
+    if img.shape != (h, w, 3) or not np.isfinite(img).all() \
+            or (img < 0).any():
+        raise AssertionError("dense route image is not finite and >= 0")
+    rays_per_s = w * h * window * bounces / window_s
+    wall_pass = window_s / window
+    busy, _ = _device_seconds(lambda: r.advance(r.nb_passes + 1), "",
+                              cpu=False)
+    idle = f"{1.0 - busy / wall_pass:.4f}" if busy > 0 else "not measured"
+    print(f"dense route: box_diffuse {w}x{h} {bounces} bounces, "
+          f"{r._ntiles} tiles of {r._tile} rays, {window}-pass window "
+          f"{window_s:.4f} s ({wall_pass * 1e3:.3f} ms wall per pass), no "
+          f"kernel launched, image mean {img.mean():.5f}, {rays_per_s:.6g} "
+          f"rays/s; device busy {busy * 1e3:.4f} ms per pass, idle share "
+          f"{idle}", flush=True)
+
+    one = dataclasses.replace(cfg, passes_per_call=1)
+    dense = Renderer(dev, one).run(1)
+    mega = Renderer(dev, dataclasses.replace(one, use_kernels=True)).run(1)
+    frac, dmean, err = megakernel_match(mega, dense)
+    print(f"dense route pass 0 vs the megakernel route (K1): close="
+          f"{frac:.4f} mean_diff={dmean:.2e} max_abs_err={err:.3e}",
+          flush=True)
+    assert_megakernel_protocol(mega, dense, "dense route vs K1, 1 pass")
+    return dict(rays_per_s=rays_per_s, window_s=window_s,
+                wall_pass_ms=wall_pass * 1e3, busy_ms=busy * 1e3, idle=idle)
+
+
+# montecarlo_aos with use_kernels=True at 800x600, tile_rays 1<<17 (4
+# tiles): (kernel, scene, light, IOR, bounces, its launches per pass:
+# tiles x bounces x 2 traces x groups of 128 prims or more, or instances)
+AOS_CASES = (("K3a", "colonnes", 0.4, 1.0, 6, 96),
+             ("K4a", "mesh_demo", 1.2, 1.3, 8, 192))
+
+
+def _aos_units(dev, kid):
+    """The scene's groups of at least PRIM_CHUNK padded prims (K3a) or
+    mesh instances (K4a): the units ops/trace.trace sends to the kernel."""
+    if kid == "K4a":
+        return len(dev.mesh_prim_index)
+    return sum(int(p.shape[0]) >= ptk.PRIM_CHUNK for p in dev.group_prim)
+
+
+def _every_launch_vs_plain(kid, rec):
+    """Every recorded launch of kid against its plain version, bit for
+    bit (_check_exact, quietly): (rows differing in all, rays in all,
+    max abs error, the plain version's and the kernel's mean ms per
+    launch, CUDA events)."""
+    differ = rays = 0
+    err = 0.0
+    plain_ms, kern_ms = [], []
+    for real, args, kw in rec:
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        e[0].record()
+        got = real(*args, **kw)
+        e[1].record()
+        e[2].record()
+        ref = _plain_of(kid, args)
+        e[3].record()
+        torch.cuda.synchronize()
+        kern_ms.append(e[0].elapsed_time(e[1]))
+        plain_ms.append(e[2].elapsed_time(e[3]))
+        differ += int((ref[1] != got[1]).sum())
+        rays += int(ref[1].numel())
+        err = max(err, _check_exact(f"{kid} montecarlo_aos launch vs plain",
+                                    ref, got, every=kid == "K3a",
+                                    verbose=False))
+    return (differ, rays, err, float(np.mean(plain_ms)),
+            float(np.mean(kern_ms)))
+
+
+def phase_aos(device, kid, name, light, ior, bounces, want, w=800, h=600,
+              tile_rays=1 << 17):
+    """One pass of montecarlo_aos with use_kernels=True through
+    compile_scene and Renderer.advance: kid's launch count (want, and
+    nothing else launched), the image against the same integrator with
+    kernels off under the megakernel protocol, kid's time per launch (the
+    card kept ahead) with its work and bound over the pass, and every
+    launch of the pass against the plain version bit for bit."""
+    dev = compile_scene(scenes.build(name, light), device=device)
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       refract_ind=ior, light_intensity=light,
+                       tile_rays=tile_rays, passes_per_call=1,
+                       integrator="montecarlo_aos", use_kernels=True,
+                       device=device)
+    r = Renderer(dev, cfg)
+    rec = []
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with record_launches(kid, rec):         # keeps references only
+        r.advance(1)                        # synchronizes before returning
+    pass_s = time.perf_counter() - t0
+    counts = _all_counts()
+    per_pass = r._ntiles * bounces * 2 * _aos_units(dev, kid)
+    if per_pass != want or counts[kid] != want or len(rec) != want \
+            or sum(counts.values()) != counts[kid]:
+        raise AssertionError(f"montecarlo_aos {name}: launches {counts}, "
+                             f"want {kid} {want} ({per_pass} from the "
+                             f"scene) and nothing else")
+    img = r.image()
+    if img.shape != (h, w, 3) or not np.isfinite(img).all() \
+            or (img < 0).any():
+        raise AssertionError(f"montecarlo_aos {name} image is not finite "
+                             f"and >= 0")
+    rays_per_s = w * h * bounces / pass_s
+    _reset_counts()
+    t0 = time.perf_counter()
+    dense = Renderer(dev, dataclasses.replace(cfg, use_kernels=False)).run(1)
+    dense_s = time.perf_counter() - t0
+    if any(_all_counts().values()):
+        raise AssertionError(f"montecarlo_aos {name} with kernels off "
+                             f"launched {_all_counts()}")
+    frac, dmean, img_err = megakernel_match(dense, img)
+    print(f"montecarlo_aos {name} {w}x{h} {bounces} bounces, IOR {ior}: "
+          f"{kid} launches {counts[kid]} in the pass ({r._ntiles} tiles x "
+          f"{bounces} bounces x 2 traces x {_aos_units(dev, kid)}), nothing "
+          f"else; pass {pass_s:.4f} s, {rays_per_s:.6g} rays/s (kernels off:"
+          f" {dense_s:.4f} s); image vs kernels off close={frac:.4f} "
+          f"mean_diff={dmean:.2e} max_abs_err={img_err:.3e}", flush=True)
+    assert_megakernel_protocol(dense, img, f"montecarlo_aos {name} kernels "
+                               f"on vs off")
+    ms_launch, ms_pass, bound_launch, bound_pass, bound_by = _pass_stats(
+        kid, r, rec)
+    differ, rays, err, plain_ms, kern_ms = _every_launch_vs_plain(kid, rec)
+    print(f"montecarlo_aos {name}: all {len(rec)} {kid} launches vs plain: "
+          f"{differ} of {rays} rows differ, max abs err {err:.3e}; plain "
+          f"{plain_ms:.3f} ms per launch, {kid} {kern_ms:.4f} ms on the same "
+          f"launches (host-paced)", flush=True)
+    return dict(launches=counts[kid], rays_per_s=rays_per_s, pass_s=pass_s,
+                dense_s=dense_s, size=f"{w}x{h}x{bounces}", ms=ms_launch, ms_pass=ms_pass,
+                plain_ms=plain_ms, bound_ms=bound_launch,
+                bound_pass=bound_pass, bound_by=bound_by, max_abs_err=err,
+                differ=differ)
+
+
+def phase_stubs(device, w=800, h=600, tile_rays=1 << 17):
+    """montecarlo_mat and montecarlo_mat_tr on box_diffuse at w x h, one
+    pass each through Renderer.advance: no kernel launched (their trace is
+    the dense fold), the output finite and non-negative."""
+    dev = compile_scene(scenes.build("box_diffuse"), device=device)
+    for name in ("montecarlo_mat", "montecarlo_mat_tr"):
+        r = Renderer(dev, RenderConfig(width=w, height=h, integrator=name,
+                                       tile_rays=tile_rays,
+                                       passes_per_call=1, device=device))
+        _reset_counts()
+        t0 = time.perf_counter()
+        img = r.run(1)
+        dt = time.perf_counter() - t0
+        if any(_all_counts().values()):
+            raise AssertionError(f"{name} launched {_all_counts()}")
+        if img.shape != (h, w, 3) or not np.isfinite(img).all() \
+                or (img < 0).any() or img.max() <= 0:
+            raise AssertionError(f"{name} image is not finite, >= 0 and "
+                                 f"lit")
+        print(f"{name} box_diffuse {w}x{h}: one pass {dt:.4f} s, no kernel "
+              f"launched, image finite, mean {img.mean():.5f}", flush=True)
+
+
+def run_dense(name_power):
+    """Phase 13: (the AoS cells' results by kernel)."""
+    res = phase_dense_route("cuda")
+    print(f"[{name_power}] dense route box_diffuse end to end "
+          f"{res['rays_per_s']:.6g} rays/s (800x600 x 4 passes x 3 bounces "
+          f"/ {res['window_s']:.4f} s); device busy {res['busy_ms']:.4f} ms "
+          f"of {res['wall_pass_ms']:.3f} ms wall per pass, idle share "
+          f"{res['idle']}", flush=True)
+    aos = {}
+    for kid, name, light, ior, bounces, want in AOS_CASES:
+        resa = phase_aos("cuda", kid, name, light, ior, bounces, want)
+        print(f"[{name_power}] montecarlo_aos {name} 800x600x{bounces}: "
+              f"{resa['rays_per_s']:.6g} rays/s (1 pass); {kid} "
+              f"{resa['ms']:.4f} ms/launch, {resa['ms_pass']:.4f} ms/pass "
+              f"over {resa['launches']} launches (bound "
+              f"{resa['bound_ms']:.5f} ms/launch, {resa['bound_by']}); plain "
+              f"{resa['plain_ms']:.3f} ms/launch; {resa['differ']} rows "
+              f"differ", flush=True)
+        aos[kid] = dict(resa, name=name)
+    phase_stubs("cuda")
+    return aos
+
+
+def _aos_line(kid, res):
+    line = _trace_line(kid, res)
+    line["name"] += f", montecarlo_aos {res['name']} {res['size']}"
+    return line
+
+
 def _trace_line(kid, res):
     name, replaces, _ = TRACE_KERNELS[kid]
     if "info" in res:
@@ -2403,13 +2637,15 @@ def run_trace_parity(name_power):
 
 def main(argv=()) -> int:
     """With no arguments every phase; `--only k1` (phases 1-3 and K1's
-    windows, K1 built alone) or `--only trace` (phases 1 and 7, the trace
-    kernels built alone) run one part, for a quick look at one kernel."""
+    windows, K1 built alone), `--only trace` (phases 1 and 7, the trace
+    kernels built alone) or `--only dense` (phases 1 and 13, K1 and the
+    trace kernels built) run one part, for a quick look."""
     only = None
     if argv:
-        if len(argv) != 2 or argv[0] != "--only" or argv[1] not in ("k1",
-                                                                  "trace"):
-            print("usage: chip_smoke.py [--only k1|trace]", file=sys.stderr)
+        if len(argv) != 2 or argv[0] != "--only" or argv[1] not in (
+                "k1", "trace", "dense"):
+            print("usage: chip_smoke.py [--only k1|trace|dense]",
+                  file=sys.stderr)
             return 2
         only = argv[1]
     if not torch.cuda.is_available():
@@ -2423,6 +2659,9 @@ def main(argv=()) -> int:
     elif only == "trace":
         phase_builds(["trace_kernels"])
         run_trace_parity(name_power)
+    elif only == "dense":
+        phase_builds(["megakernel", "trace_kernels"])
+        run_dense(name_power)
     if only:
         print(name_power)
         print(json.dumps({"ok": True, "device": {
@@ -2487,6 +2726,7 @@ def main(argv=()) -> int:
           f"{res4['plain_ms']:.3f} ms/launch", flush=True)
     trace["K3b"] = res4
     phase_fma(trace)
+    aos = run_dense(name_power)
 
     print(json.dumps({"kernels": [
         {"name": "K1 mega_kernel", "route": "cuda", "source": K1_SOURCE,
@@ -2507,6 +2747,7 @@ def main(argv=()) -> int:
          "bound_by": res2["bound_by"], "library_ms": None}]
         + [_trace_line(kid, trace[kid])
            for kid in ("K3a", "K3b", "K4a", "K4b", "K5", "K6")]
+        + [_aos_line(kid, aos[kid]) for kid in ("K3a", "K4a")]
         + [dict(line, name=line["name"].replace(
             "K5 an_walk", f"K5 an_tile_walk, a random shape-{code} group"))
            for code, line in sorted((c, _trace_line("K5", r))

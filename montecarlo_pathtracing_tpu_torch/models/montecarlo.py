@@ -9,16 +9,18 @@ march-through with stale (N, P) on an inner miss, emissive termination
 and bounce-cap exhaustion returning black, with the 2+1+2 masked draw
 schedule.
 
-Three kernel routes are ported, chosen as the reference chooses them:
+Four routes, chosen as the reference chooses them:
   - the whole-pass megakernel (models/megakernel.py, kernel K1) for
     analytic scenes of up to 4096 prims;
   - the fused per-bounce route (models/bounce_kernel.py, kernel K2) for
     mesh scenes and analytic scenes past the prim-table cap;
   - the pallas-trace route, `random_path_soa` over `ops/trace.trace_soa`
-    (kernels K3a, K4a, K5, K6), when the other two are turned off or
-    gradients are asked for (detach_sampling).
-The dense route (use_kernels=False) raises NotImplementedError naming its
-ROADMAP item.
+    (kernels K3a, K3b, K4a, K5, K6), when the other two are turned off or
+    gradients are asked for (detach_sampling);
+  - the dense route (use_kernels=False), `random_path_soa` over the
+    dense AoS fold `ops/trace.trace`: the reference semantics, and the
+    route whose trace is differentiated (the IOR gradient's geometric
+    term flows through the refraction exit points).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from ..ops.pallas_trace import RAY_TILE
 from ..ops.sampling import random_ray_soa, schlick_soa
 from ..ops.shading import intersection_info_soa
 from ..ops.sort_rays import PARK_Z, ray_sort_key, sort_wavefront
-from ..ops.trace import HitS, trace_soa
+from ..ops.trace import HitS, trace, trace_soa
 from .bounce_kernel import fused_eligible, raytrace_fused
 from .megakernel import (
     BIAS, SKY_HIGH, SKY_LOW, mega_eligible, raytrace_mega)
@@ -40,26 +42,36 @@ def sky_color_soa(d):
     return tuple((1.0 - k) * lo + k * hi for lo, hi in zip(SKY_LOW, SKY_HIGH))
 
 
-def _trace(scene, o, d, cull_chunks, nondiff):
-    """SoA closest hit through the trace kernels; nondiff detaches the
-    rays in and every hit field out (the kernels have no backward, and
-    need none: hit geometry does not depend on the differentiable
-    material leaves)."""
-    if not nondiff:
-        return trace_soa(scene, o, d, cull_chunks=cull_chunks)
-    hit = trace_soa(scene, tuple(c.detach() for c in o),
-                    tuple(c.detach() for c in d), cull_chunks=cull_chunks)
-    return HitS(*(tuple(c.detach() for c in f) if isinstance(f, tuple)
-                  else f.detach() for f in hit))
+def _trace(scene, o, d, use_kernels, cull_chunks, nondiff):
+    """SoA closest hit: through the trace kernels (trace_soa) with
+    use_kernels, else through the dense AoS fold (ops/trace.trace).
+    nondiff detaches the rays in and every hit field out (the kernels
+    have no backward, and need none: hit geometry does not depend on the
+    differentiable material leaves)."""
+    if nondiff:
+        o = tuple(c.detach() for c in o)
+        d = tuple(c.detach() for c in d)
+    if use_kernels:
+        hit = trace_soa(scene, o, d, cull_chunks=cull_chunks)
+    else:
+        h = trace(scene, vec.to_aos(o), vec.to_aos(d))
+        hit = HitS(h.dist, h.prim, h.shape, h.dircode, h.tri,
+                   vec.from_aos(h.pl), vec.from_aos(h.pg))
+    if nondiff:
+        hit = HitS(*(tuple(c.detach() for c in f) if isinstance(f, tuple)
+                     else f.detach() for f in hit))
+    return hit
 
 
 def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
                     detach_sampling: bool = False,
+                    use_kernels: bool = False,
                     cull_chunks: bool | None = None,
                     nondiff_trace: bool = False, sort_rays: bool = False):
-    """One path per lane. o, d: vec3 of [N] (d normalized, N a multiple
-    of RAY_TILE), state: (s0, s1, s2) int64 [N] RNG counters in [0,
-    2**32). Returns (rgb vec3, state).
+    """One path per lane. o, d: vec3 of [N] (d normalized; with
+    use_kernels N a multiple of RAY_TILE), state: (s0, s1, s2) int64 [N]
+    RNG counters in [0, 2**32). Returns (rgb vec3, state). use_kernels
+    traces through the trace kernels, else through the dense fold.
 
     sort_rays: re-sort the wavefront before each bounce by direction
     octant and origin Morton code (ops/sort_rays), parking finished rays
@@ -100,7 +112,7 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
             done = flat[15]
             state = tuple(flat[16:19])
             lane = flat[19]
-        hit = _trace(scene, o, d, cull_chunks, nondiff_trace)
+        hit = _trace(scene, o, d, use_kernels, cull_chunks, nondiff_trace)
 
         active = ~done
         is_hit = hit.shape >= 0
@@ -178,7 +190,7 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
                 park = o
             o_inner = vec.where(refr_lane, vec.sub(P, vec.scale(N, BIAS)),
                                 park)
-            hit2 = _trace(scene, o_inner, d_inner, cull_chunks,
+            hit2 = _trace(scene, o_inner, d_inner, use_kernels, cull_chunks,
                           nondiff_trace)
             n2_raw, p2_raw = intersection_info_soa(scene, hit2, prev=(N, P))
             N2 = vec.where(refr_lane, n2_raw, unit_z)
@@ -243,7 +255,10 @@ def raytrace(scene, O, D, screen_tc, pass_index: int, *, nb_bounces: int,
     cull_chunks (None = auto) chooses its kernels (ops/trace.trace_soa),
     nondiff_trace (None = detach_sampling) detaches its traces, and
     sort_rays (None = auto: on for multi-bounce renders without
-    gradients) re-sorts its wavefront between bounces.
+    gradients) re-sorts its wavefront between bounces. With kernels off
+    the dense route runs: no padding, and nondiff_trace and sort_rays
+    resolve to False (the rays stay in their order, the trace in the
+    backward pass).
     """
     if nondiff_trace is None:
         nondiff_trace = use_kernels and detach_sampling
@@ -261,16 +276,15 @@ def raytrace(scene, O, D, screen_tc, pass_index: int, *, nb_bounces: int,
         return raytrace_fused(
             scene, O, D, screen_tc, pass_index, nb_bounces=nb_bounces,
             refract_ind=refract_ind, date=date)
-    if not use_kernels:
-        raise NotImplementedError(
-            "the dense route is not ported yet: ROADMAP item A.7")
     if sort_rays is None:
-        sort_rays = not detach_sampling and nb_bounces > 1
+        sort_rays = (bool(use_kernels) and not detach_sampling
+                     and nb_bounces > 1)
 
-    # the pallas-trace route: pad to RAY_TILE with unit-z dummy rays
+    # the pallas-trace route pads to RAY_TILE with unit-z dummy rays; the
+    # dense route takes the rays as they are
     dev = D.device
     n = D.shape[0]
-    pad = -(-n // RAY_TILE) * RAY_TILE
+    pad = -(-n // RAY_TILE) * RAY_TILE if use_kernels else n
     dn = D / torch.sqrt((D * D).sum(dim=-1, keepdim=True))
     z = torch.zeros((pad,), dtype=torch.float32, device=dev)
     dx, dy, dz = z.clone(), z.clone(), z + 1.0
@@ -283,6 +297,6 @@ def raytrace(scene, O, D, screen_tc, pass_index: int, *, nb_bounces: int,
     rgb, _ = random_path_soa(
         scene, o, (dx, dy, dz), state, nb_bounces=nb_bounces,
         refract_ind=refract_ind, detach_sampling=detach_sampling,
-        cull_chunks=cull_chunks, nondiff_trace=nondiff_trace,
-        sort_rays=sort_rays)
+        use_kernels=use_kernels, cull_chunks=cull_chunks,
+        nondiff_trace=nondiff_trace, sort_rays=sort_rays)
     return torch.stack(rgb, dim=-1)[:n]

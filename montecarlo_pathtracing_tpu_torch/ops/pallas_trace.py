@@ -28,6 +28,12 @@ counterparts are in csrc/trace_kernels.cu.
     over to `mesh_best_rows_culled` (K4b): two-level gating, a super of
     16 leaf chunks and then each leaf, against the running best `a`.
 
+The AoS wrappers `trace_analytic_group_pallas` (K3a) and
+`trace_mesh_instance_pallas` (K4a) fold one group or instance into the
+dense trace's `Hit` record (ops/trace.trace with use_kernels): they pad
+[N, 3] rays to RAY_TILE rows, launch the brute kernel, slice the padding
+off and rebuild the winner's hit points from its row.
+
 The cull is conservative, so the culled folds return the brute folds'
 winners. Each wrapper runs its plain PyTorch version (`*_plain`: the
 chunked fold of the TPU kernel, [M, 128] per chunk, first minimum inside
@@ -45,9 +51,11 @@ import ctypes
 import torch
 
 from .. import kernels
-from .intersect import EPSILON, FLT_MAX
+from .intersect import CODE_MESH, EPSILON, FLT_MAX, Hit, _better
 from .shapes import SOA_FNS
 from .vec import affine_rows, safe_rcp
+from ..utils.transforms import (
+    length3, normalize, transform_dir, transform_point)
 
 RAY_TILE = 1024     # rays per tile (the TPU kernels' grid step)
 PRIM_CHUNK = 128    # prims or triangles per chunk
@@ -553,3 +561,90 @@ def mesh_best_culled(o, d, tri, cbb, sbb, work=None, lanes=None):
     raise_on_error("K4b", lib, err)
     mesh_best_rows_culled.launches += 1
     return a, row
+
+
+# --------------------------------------------------------------------------
+# AoS wrappers: K3a and K4a folded into the dense trace's Hit record
+# (ops/trace.trace with use_kernels), the reference's :440-495, :717-749
+# --------------------------------------------------------------------------
+
+def _ray_rows(O, D):
+    """[N, 3] rays -> contiguous [3, npad] rows, npad a RAY_TILE multiple;
+    the padding rays (origin 0, direction unit z) are sliced off after
+    the launch."""
+    n = O.shape[0]
+    npad = _round_up(n, RAY_TILE)
+    o = torch.zeros((3, npad), dtype=_F32, device=O.device)
+    d = torch.zeros((3, npad), dtype=_F32, device=O.device)
+    d[2] = 1.0
+    o[:, :n] = O.T
+    d[:, :n] = D.T
+    return o, d
+
+
+def _group_best(O, D, shape_code, transfo, inv, prim_idx):
+    """K3a's (dist, row, a, dircode), each [N], of world rays O, D [N, 3]
+    against one group's [P, 4, 4] tables. The kernel is reached through
+    the ops/trace module's `group_best_rows`, as trace_soa reaches it, so
+    that a caller who replaces that attribute sees these launches too."""
+    from . import trace as trace_mod
+    n = O.shape[0]
+    o, d = _ray_rows(O, D)
+    inv_r, trf_r, pid = _pad_group(transfo, inv, prim_idx)
+    dist, row, a, dircode = trace_mod.group_best_rows(
+        o, d, shape_code, inv_r, trf_r, pid)
+    return dist[:n], row[:n], a[:n], dircode[:n]
+
+
+def trace_analytic_group_pallas(best, O, D, shape_code, transfo, inv,
+                                prim_idx):
+    """intersect.trace_analytic_group through K3a: fold one group into
+    the running best Hit. The winner's local and world hit points are
+    rebuilt outside the kernel from its group row ([N] gathers instead
+    of [N, C, 3] blocks)."""
+    dist, row, a, dircode = _group_best(O, D, shape_code, transfo, inv,
+                                        prim_idx)
+    ok = row >= 0
+    r = torch.where(ok, row, 0).long()
+    inv_w = inv[r]                                   # [N,4,4]
+    trf_w = transfo[r]
+    pid_w = torch.where(ok, prim_idx[r], -1).to(_I32)
+    oi = transform_point(inv_w, O)
+    di = normalize(transform_dir(inv_w, D))
+    plh = oi + a[:, None] * di
+    pgh = transform_point(trf_w, plh)
+    cand = Hit(dist=torch.where(ok, dist, _FMAX), pl=plh, pg=pgh,
+               prim=pid_w, shape=torch.where(ok, shape_code, -1).to(_I32),
+               dircode=dircode,
+               tri=torch.full(dist.shape, -1, dtype=_I32, device=O.device))
+    return _better(best, cand)
+
+
+def _mesh_best(Oi, Di, va, vb, vc):
+    """K4a's (a, row), each [N], of mesh-local rays Oi, Di [N, 3] (Di
+    unit) against one instance's [P, 3] corners; reached through the
+    ops/trace module as `_group_best` reaches K3a."""
+    from . import trace as trace_mod
+    n = Oi.shape[0]
+    o, d = _ray_rows(Oi, Di)
+    a, row = trace_mod.mesh_best_rows(o, d, pad_tris(va, vb, vc))
+    return a[:n], row[:n]
+
+
+def trace_mesh_instance_pallas(best, O, D, inv, mesh_transfo,
+                               prim_index: int, va, vb, vc,
+                               tri_offset: int):
+    """intersect.trace_mesh_instance through K4a."""
+    Oi = transform_point(inv, O)
+    Di = normalize(transform_dir(inv, D))
+    a, row = _mesh_best(Oi, Di, va, vb, vc)
+    ok = row >= 0
+    plh = Oi + a[:, None] * Di
+    pgh = transform_point(mesh_transfo, plh)
+    dist = length3(O - pgh)
+    cand = Hit(dist=torch.where(ok, dist, _FMAX), pl=plh, pg=pgh,
+               prim=torch.where(ok, prim_index, -1).to(_I32),
+               shape=torch.where(ok, CODE_MESH, -1).to(_I32),
+               dircode=torch.zeros(a.shape, dtype=_I32, device=O.device),
+               tri=torch.where(ok, tri_offset + row, -1).to(_I32))
+    return _better(best, cand)

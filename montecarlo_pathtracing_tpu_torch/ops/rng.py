@@ -6,6 +6,10 @@ from (pixel uv bits, pass * GOLDEN + bits(date)), a counter advance of
 uvec3(11, 43, 67) per draw, and the mantissa trick mapping the hash to a
 float in [0, 1). Streams are bit-identical to the JAX package.
 
+The AoS forms (`xxhash32`, `srand`, `uniform`, ...) keep the state as an
+[..., 3] tensor, one counter per lane, as the reference's [N, 3] API; the
+SoA forms (`*_soa`) as a tuple of [N] tensors. Both give the same streams.
+
 Integer layout: PyTorch on the CPU has no uint32 add or shift, so a
 counter lane is an int64 tensor holding a value in [0, 2**32). Every add
 and multiply is masked with `& 0xFFFFFFFF`; the int64 product of two
@@ -50,6 +54,53 @@ def seed_y(pass_index: int, date: float = 0.0) -> int:
 def _rotl17(h):
     return ((h << 17) | (h >> 15)) & M32
 
+
+def xxhash32(p):
+    """xxhash32 of an int64 [..., 3] counter of uint32 values
+    (raytracer_func.frag:90-101)."""
+    return xxhash32_soa(p[..., 0], p[..., 1], p[..., 2])
+
+
+def srand(screen_tc, pass_index: int, date: float = 0.0):
+    """Initial per-lane counter from (uv, pass, date), integer-exact:
+    (bits(tc.x), pass * GOLDEN + bits(date), bits(tc.y)). screen_tc:
+    float32 [..., 2]; returns int64 [..., 3]."""
+    return torch.stack(srand_soa(screen_tc[..., 0], screen_tc[..., 1],
+                                 pass_index, date), dim=-1)
+
+
+def uniform(state):
+    """One draw per lane of an int64 [..., 3] state: (value in [0, 1)
+    float32, advanced state) (raytracer_func.frag:112-124)."""
+    f, new = uniform_soa((state[..., 0], state[..., 1], state[..., 2]))
+    return f, torch.stack(new, dim=-1)
+
+
+def uniform_masked(state, mask):
+    """Draw for every lane but advance the counter only where `mask`:
+    the sequential GLSL draw schedule under masked SIMD. Values at
+    masked-off lanes are garbage and must not be used."""
+    f, new = uniform(state)
+    return f, torch.where(mask[..., None], new, state)
+
+
+def uniform2(state):
+    f1, state = uniform(state)
+    f2, state = uniform(state)
+    return torch.stack([f1, f2], dim=-1), state
+
+
+def uniform3(state):
+    f1, state = uniform(state)
+    f2, state = uniform(state)
+    f3, state = uniform(state)
+    return torch.stack([f1, f2, f3], dim=-1), state
+
+
+# ---------------------------------------------------------------------------
+# SoA forms: the state as a tuple (s0, s1, s2) of [N] int64 tensors, the
+# same streams bit for bit
+# ---------------------------------------------------------------------------
 
 def xxhash32_soa(s0, s1, s2):
     """xxhash32 of (s0, s1, s2), each an int64 tensor of uint32 values."""

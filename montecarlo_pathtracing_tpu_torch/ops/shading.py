@@ -1,8 +1,9 @@
-"""Shading-normal reconstruction of a SoA hit record (intersection_info).
+"""Shading-normal reconstruction of a hit record (intersection_info).
 
-Port of the SoA half of montecarlo_pathtracing_tpu/ops/shading.py
-(:133-245), which the pallas-trace route's integrator uses. The
-reference's construction is kept literally (raytracer_func.frag:783-897):
+Port of montecarlo_pathtracing_tpu/ops/shading.py: the AoS form
+(`intersection_info`, the dense route and the AoS integrator) and the SoA
+form (`intersection_info_soa`, the SoA integrator). The reference's
+construction is kept literally (raytracer_func.frag:783-897):
 
     N = normalize( (transfo * (pl + No_local)).xyz - Pg )
 
@@ -13,8 +14,9 @@ normals are the area-weighted blend of the vertex normals, or with
 N, P are kept (the refraction re-trace relies on that,
 tp/montecarlo.frag:150-152).
 
-The row-matrix math stays in [k, M] form as in the reference (one gather
-of a [24, P] or [18, T] table per call, then 2-D ops).
+The SoA form keeps the row-matrix math in [k, M] form as in the
+reference (one gather of a [24, P] or [18, T] table per call, then 2-D
+ops).
 """
 from __future__ import annotations
 
@@ -23,7 +25,95 @@ import torch
 from . import vec
 from .intersect import CODE_MESH, CODE_SPHERE, CODE_CUBE, CODE_CYLINDER, \
     CODE_CONE
+from ..utils.transforms import cross3, length3, normalize, transform_point
 
+
+def _axis_offset(dircode):
+    """No for cube faces: unit vector along axis dir/2, sign from dir%2
+    (raytracer_func.frag:820-827)."""
+    ax = dircode // 2
+    sg = torch.where(dircode % 2 != 0, 1.0, -1.0)
+    return torch.stack([torch.where(ax == c, sg, 0.0) for c in range(3)],
+                       dim=-1)
+
+
+def intersection_info(scene, hit, prev_n=None, prev_p=None):
+    """Returns (N [*,3], P [*,3]) world shading normal and hit point of
+    an ops.intersect.Hit.
+
+    prev_n/prev_p: values to keep where hit.shape < 0 (stale-output GLSL
+    semantics); default zero-vectors.
+    """
+    prim = torch.clamp(hit.prim, 0, scene.nb_prims - 1).long()
+    trf = scene.transfo[prim]                            # [*,4,4]
+    pl = hit.pl
+    pg = hit.pg
+    zero = torch.zeros_like(pl[..., 0])
+    dircode = hit.dircode
+
+    # --- analytic local offsets -----------------------------------------
+    no_cube = _axis_offset(dircode)
+    # cylinder: caps -> +-z by dir%2; side -> (pl.xy, 0)
+    cap = dircode < 2
+    no_cyl = torch.where(
+        cap[..., None],
+        torch.stack([zero, zero,
+                     torch.where(dircode % 2 != 0, 1.0, -1.0)], -1),
+        torch.stack([pl[..., 0], pl[..., 1], zero], -1))
+    # cone: dir 0 bottom cap -> pl + (0,0,-1); dir 2 side -> (pl.xy, len/2)
+    rxy = torch.sqrt(pl[..., 0] ** 2 + pl[..., 1] ** 2)
+    no_cone = torch.where(
+        (dircode == 0)[..., None],
+        torch.stack([zero, zero, torch.full_like(rxy, -1.0)], -1),
+        torch.stack([pl[..., 0], pl[..., 1], rxy / 2.0], -1))
+    no_quad = torch.stack([zero, zero, torch.ones_like(zero)], -1)
+
+    shape = hit.shape
+    # sphere uses trf*(2*pl) - Pg; the others use trf*(pl + No) - Pg
+    point = torch.where(
+        (shape == CODE_SPHERE)[..., None], 2.0 * pl,
+        pl + torch.where(
+            (shape == CODE_CUBE)[..., None], no_cube,
+            torch.where(
+                (shape == CODE_CYLINDER)[..., None], no_cyl,
+                torch.where((shape == CODE_CONE)[..., None], no_cone,
+                            no_quad))))
+    n_analytic = normalize(transform_point(trf, point) - pg)
+    # cone top-"cap" quirk: N = 0 (raytracer_func.frag:850-853)
+    cone_zero = (shape == CODE_CONE) & (dircode == 1)
+    n_analytic = torch.where(cone_zero[..., None], 0.0, n_analytic)
+
+    # --- mesh normals ----------------------------------------------------
+    if scene.tri_va.shape[0] > 0:
+        tri = torch.clamp(hit.tri, 0, scene.tri_va.shape[0] - 1).long()
+        A, B, C = scene.tri_va[tri], scene.tri_vb[tri], scene.tri_vc[tri]
+        mtrf = scene.mesh_transfo[prim]
+        if scene.flat_face:
+            no_mesh = cross3(B - A, C - A)
+        else:
+            PA, PB, PC = A - pl, B - pl, C - pl
+            tA = length3(cross3(PB, PC))[..., None]
+            tB = length3(cross3(PA, PC))[..., None]
+            tC = length3(cross3(PA, PB))[..., None]
+            no_mesh = (scene.tri_na[tri] * tA + scene.tri_nb[tri] * tB
+                       + scene.tri_nc[tri] * tC)
+        n_mesh = normalize(transform_point(mtrf, pl + no_mesh) - pg)
+        n = torch.where((shape == CODE_MESH)[..., None], n_mesh, n_analytic)
+    else:
+        n = n_analytic
+
+    # --- stale-on-miss ---------------------------------------------------
+    is_hit = (shape >= 0)[..., None]
+    if prev_n is None:
+        prev_n = torch.zeros_like(n)
+    if prev_p is None:
+        prev_p = torch.zeros_like(pg)
+    return torch.where(is_hit, n, prev_n), torch.where(is_hit, pg, prev_p)
+
+
+# ---------------------------------------------------------------------------
+# SoA form (vec3 = tuple of [M] tensors): the same formulas
+# ---------------------------------------------------------------------------
 
 def _affine2d(rows, v):
     """Affine transform of points by per-ray gathered rows: rows [12, M]

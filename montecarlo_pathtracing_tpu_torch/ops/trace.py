@@ -1,9 +1,18 @@
-"""Scene-level closest hit in SoA layout through the trace kernels.
+"""Scene-level trace: fold every primitive group into a closest hit.
 
-Port of the SoA half of montecarlo_pathtracing_tpu/ops/trace.py
-(:100-296): `trace_soa` folds every analytic group and mesh instance of
-the scene into one `HitS` record, choosing per group or instance the
-same kernel as the reference:
+Port of montecarlo_pathtracing_tpu/ops/trace.py. Two forms:
+
+`trace` (:27-83) is the AoS form over [N, 3] rays, the dense route's and
+the AoS integrator's: every analytic group folds through the dense
+[N, C] intersectors of ops/intersect.py, and every mesh instance through
+their triangle fold. With `use_kernels` (the reference's use_pallas) a
+group of at least PRIM_CHUNK (128) padded prims takes K3a and every mesh
+instance K4a instead, through the AoS wrappers of ops/pallas_trace.py;
+the same winners up to exact distance ties.
+
+`trace_soa` (:100-296) folds every analytic group and mesh instance of
+the scene into one `HitS` record through the trace kernels, choosing per
+group or instance the same kernel as the reference:
 
   - groups of at most SMALL_GROUP_MAX prims: `_small_group_soa`, a
     Python loop over the prims with scalar coefficients (plain torch ops,
@@ -34,9 +43,12 @@ from typing import NamedTuple
 import torch
 
 from . import vec
-from .intersect import CODE_MESH, FLT_MAX
+from .intersect import (
+    CODE_MESH, FLT_MAX, Hit, miss_hit, trace_analytic_group,
+    trace_mesh_instance)
 from .pallas_trace import (
-    PRIM_CHUNK, _pad_group, group_best_rows, mesh_best_rows, pad_tris)
+    PRIM_CHUNK, _pad_group, group_best_rows, mesh_best_rows, pad_tris,
+    trace_analytic_group_pallas, trace_mesh_instance_pallas)
 from .shapes import SOA_FNS
 from .sparse_trace import (
     AN_TILE, MESH_TILE, group_best_rows_sparse, mesh_best_rows_sparse)
@@ -51,6 +63,48 @@ SMALL_GROUP_MAX = 96
 # where it bounds the XLA-side [tiles, blocks] entry matrix); larger ones
 # take K3b with the cull on
 SPARSE_GROUP_MAX = 1 << 17
+
+
+def trace(scene, O, D, *, use_kernels: bool = False) -> Hit:
+    """Closest hit of world rays O, D: [N,3] against the whole scene.
+
+    use_kernels folds the groups of at least PRIM_CHUNK prims through K3a
+    and every mesh instance through K4a (the kernels' plain versions on
+    CPU tensors); the dense fold remains the default and the reference
+    semantics."""
+    best = miss_hit(O.shape[:-1], O.device)
+    for gi, code in enumerate(scene.group_codes):
+        # K3a pads a group to PRIM_CHUNK lanes: a win only when the group
+        # fills them
+        if use_kernels and scene.group_prim[gi].shape[0] >= PRIM_CHUNK:
+            best = trace_analytic_group_pallas(
+                best, O, D, code, scene.group_transfo[gi],
+                scene.group_inv[gi], scene.group_prim[gi])
+            continue
+        best = trace_analytic_group(
+            best, O, D, code, scene.group_transfo[gi], scene.group_inv[gi],
+            scene.group_prim[gi], scene.group_chunk[gi])
+    for mi, prim_index in enumerate(scene.mesh_prim_index):
+        off = scene.mesh_tri_offset[mi]
+        cnt = scene.mesh_tri_padded[mi]
+        tris = (scene.tri_va[off:off + cnt], scene.tri_vb[off:off + cnt],
+                scene.tri_vc[off:off + cnt])
+        if use_kernels:
+            best = trace_mesh_instance_pallas(
+                best, O, D, scene.inv_transfo[prim_index],
+                scene.mesh_transfo[prim_index], prim_index, *tris,
+                tri_offset=off)
+            continue
+        best = trace_mesh_instance(
+            best, O, D, scene.inv_transfo[prim_index],
+            scene.mesh_transfo[prim_index], prim_index, *tris,
+            tri_offset=off, chunk=min(scene.tri_chunk, cnt))
+    return best
+
+
+def hit_any(scene, O, D):
+    """Occlusion query (just_hit_bvh analog): True where any prim is hit."""
+    return trace(scene, O, D).shape >= 0
 
 
 class HitS(NamedTuple):

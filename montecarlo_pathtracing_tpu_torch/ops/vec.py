@@ -1,14 +1,34 @@
 """SoA vec3 math: vectors as (x, y, z) tuples of [N] tensors.
 
-Port of montecarlo_pathtracing_tpu/ops/vec.py, the helpers the
-pallas-trace route (ops/trace.py, ops/shading.py, ops/sampling.py,
-models/montecarlo.random_path_soa) needs. Same formulas and operation
-order as the reference, so results agree to float rounding. All helpers
-broadcast over their components.
+Port of montecarlo_pathtracing_tpu/ops/vec.py, the helpers the SoA
+integrator (ops/trace.py, ops/shading.py, ops/sampling.py,
+models/montecarlo.random_path_soa) needs, and the AoS bridge
+(`from_aos`, `to_aos`) at the boundary to the dense [N, 3] trace. Same
+formulas and operation order as the reference, so results agree to float
+rounding. All helpers broadcast over their components.
 """
 from __future__ import annotations
 
 import torch
+
+
+def v3(x, y, z):
+    return (x, y, z)
+
+
+def splat(c, like):
+    """Constant vec3 broadcast to the shape of `like`'s components."""
+    return tuple(torch.full_like(like[0], ci) for ci in c)
+
+
+def from_aos(a):
+    """[N, 3] -> ((N,), (N,), (N,)). Boundary-only."""
+    return (a[..., 0], a[..., 1], a[..., 2])
+
+
+def to_aos(v):
+    """((N,),)*3 -> [N, 3]. Boundary-only."""
+    return torch.stack(v, dim=-1)
 
 
 def add(a, b):

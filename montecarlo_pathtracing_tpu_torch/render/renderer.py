@@ -35,11 +35,13 @@ from .camera import default_rt_camera, camera_rays
 class RenderConfig:
     """The reference's knobs (ImGui sliders + defaults,
     montecarlo.cpp:128-130,584-606,801) as a config dataclass. The JAX
-    package's `use_pallas` is `use_kernels` here, and defaults to True
-    because the kernel routes are the ported ones (the dense route is
-    ROADMAP item A.7); `device` names the torch device the render runs
-    on and must match the scene's. It is the card unless the caller
-    names the CPU: nothing falls back to the CPU when no card is found."""
+    package's `use_pallas` is `use_kernels` here, and defaults to True:
+    the kernel routes are the card's renderer, while the dense route
+    (use_kernels=False) is the reference semantics, the route for
+    gradients, and the trace the stub integrators use; `device` names
+    the torch device the render runs on and must match the scene's. It
+    is the card unless the caller names the CPU: nothing falls back to
+    the CPU when no card is found."""
     width: int = 1280
     height: int = 1000
     nb_bounces: int = 3          # slider 0-9

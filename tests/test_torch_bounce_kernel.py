@@ -388,16 +388,17 @@ def test_raytrace_routes_mesh_scenes_to_fused(slice_runs):
     """raytrace(use_kernels=True) on mesh_demo is raytrace_fused; with
     the fused route off it takes the pallas-trace route, whose image is
     the fused route's under the fused protocol (the same integrator and
-    RNG streams over other kernels); a forced megakernel never takes the
-    fused route, and the unported dense route raises naming its ROADMAP
-    item."""
+    RNG streams over other kernels), as is the dense route's (kernels
+    off); a forced megakernel never takes the fused route."""
     _, dev = _scenes("mesh_demo")
     o, d, tc = (torch.as_tensor(a) for a in _rays())
     via = raytrace(dev, o, d, tc, PASS, nb_bounces=4, refract_ind=1.3,
                    use_kernels=True)
     np.testing.assert_array_equal(via.numpy(), slice_runs["mesh_demo"][1])
-    with pytest.raises(NotImplementedError, match="A.7"):
-        raytrace(dev, o, d, tc, PASS, nb_bounces=4, refract_ind=1.3)
+    dense = raytrace(dev, o, d, tc, PASS, nb_bounces=4,
+                     refract_ind=1.3).numpy()
+    assert np.isfinite(dense).all() and (dense >= 0).all()
+    assert_fused_protocol(via.numpy(), dense, "dense route")
     trace_route = raytrace(dev, o, d, tc, PASS, nb_bounces=4, refract_ind=1.3,
                            use_kernels=True, use_fused=False).numpy()
     assert np.isfinite(trace_route).all() and (trace_route >= 0).all()

@@ -171,7 +171,8 @@ def test_k1_wrapper_refuses_cpu_tensors():
 
 def test_routing():
     """use_kernels on an eligible analytic scene goes to the megakernel;
-    mesh scenes are not eligible; the unported dense route raises.
+    mesh scenes are not eligible; the dense route (kernels off) meets the
+    megakernel protocol against it.
     box_diffuse with the megakernel off is not fused-eligible either, so
     it takes the pallas-trace route, as the JAX raytrace does (its small
     groups fold without a kernel on either side); that image agrees with
@@ -186,8 +187,9 @@ def test_routing():
     np.testing.assert_array_equal(via_route.numpy(), direct.numpy())
     assert not mk.mega_eligible(compile_scene(scenes.build("mesh_demo"),
                                               device="cpu"))
-    with pytest.raises(NotImplementedError, match="A.7"):
-        raytrace(dev, o, d, tc, 1, nb_bounces=3, refract_ind=1.0)
+    dense = raytrace(dev, o, d, tc, 1, nb_bounces=3, refract_ind=1.0)
+    assert_megakernel_protocol(direct.numpy(), dense.numpy(),
+                               "dense route vs megakernel")
     trace_route = raytrace(dev, o, d, tc, 1, nb_bounces=3, refract_ind=1.0,
                            use_kernels=True, use_megakernel=False).numpy()
     assert trace_route.shape == (16 * 8, 3) and np.isfinite(trace_route).all()

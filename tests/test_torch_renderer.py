@@ -121,10 +121,19 @@ def test_png_matches_jax(tmp_path):
 
 
 def test_unported_options_raise():
+    """Multi-device rendering (ROADMAP A.13) raises; every name of the
+    carousel resolves to its integrator, and an unknown name raises
+    KeyError."""
     with pytest.raises(NotImplementedError, match="A.13"):
         _port(shard_devices=2)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        _port(integrator="montecarlo_aos")
+    from montecarlo_pathtracing_tpu_torch.models import registry
+    assert list(registry.INTEGRATORS) == ["montecarlo", "montecarlo_mat",
+                                          "montecarlo_mat_tr",
+                                          "montecarlo_aos"]
+    for name, fn in registry.INTEGRATORS.items():
+        assert _port(integrator=name)._integrator is fn
+    with pytest.raises(KeyError, match="unknown integrator"):
+        _port(integrator="montecarlo_bvh")
     with pytest.raises(ValueError, match="scene is on"):
         Renderer(compile_scene(scenes.build("box_diffuse"), device="cpu"),
                  RenderConfig(width=8, height=8, device="meta"))
