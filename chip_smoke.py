@@ -1,13 +1,15 @@
 """GPU smoke of the PyTorch/CUDA port: build every kernel, hold each one
 against its plain PyTorch version, and drive every ported path once.
 
-    python3 chip_smoke.py [--only k1|trace|dense]
+    python3 chip_smoke.py [--only k1|trace|dense|diff|tools]
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
-and prints no result, without them. Phases (about 10 minutes in all on
+and prints no result, without them. Phases (about 13 minutes in all on
 an H100, the builds included; `--only k1` runs phases 1-3 with K1 built
 alone, `--only trace` phases 1 and 7 with the trace kernels built alone,
-`--only dense` phases 1 and 13 with K1 and the trace kernels built):
+`--only dense` phases 1 and 13 with K1 and the trace kernels built,
+`--only diff` phases 1 and 14 with the trace kernels built alone, `--only
+tools` phases 1 and 15 with K1 and K2 built):
 
 1. the card's name and power limit; build K1 (csrc/megakernel.cu), K2
    (csrc/bounce_kernel.cu, and its counting build for the work counters)
@@ -142,12 +144,38 @@ alone, `--only trace` phases 1 and 7 with the trace kernels built alone,
    every launch of the pass against the plain version bit for bit (rows,
    distances or a, K3a's a and dircode; the rows that differ printed);
    montecarlo_mat and montecarlo_mat_tr on box_diffuse 800x600, one pass
-   each, finite and launching nothing.
+   each, finite and launching nothing;
+14. gradients (render/diff.py): pixel_grads on the fast route (the
+   pallas-trace route with its trace detached) on colonnes 800x600x6 at
+   light 0.4, 2 passes, and mesh_demo 800x600x8, 1 pass, all rays in one
+   call: K5's and K6's launches (only they, and none in the backward
+   pass), the wall time of the forward and the backward pass, the peak
+   device memory, every leaf finite and the albedo's gradient nonzero on
+   some row; the kernel's time per launch, bound and plain version over
+   the window's launches (a forward under torch.no_grad, recorded); the
+   fast route's gradients against the dense route's on colonnes
+   96x72x4, 2 passes (K5; color and mat: colonnes has no emissive prim,
+   so its light_scale gradient is 0) and mesh_demo 64x48x4, 1 pass (K6;
+   color, mat and light_scale), each within 1e-3 x the leaf's largest
+   magnitude, which must not be 0; a central finite difference of the albedo channel
+   with the largest gradient on colonnes 160x120x6 (rtol 0.05,
+   tests/test_grad.py:39-50); 20 steps of inverse_render_fit on colonnes
+   160x120x6 (three prims' albedo from (0.1, 0.6, 0.2)): the loss falls,
+   ms and K5 launches per step;
+15. the command line and the tools: cli.main render of box_diffuse
+   800x600, 64 spp, 3 bounces (K1 only; its PNG equal to a Renderer's
+   resolve with the same config), bench on box_diffuse (K1) and
+   mesh_demo (K2, 8 passes of 8 bounces) with its JSON line, `python -m
+   montecarlo_pathtracing_tpu_torch scenes` in a subprocess, sampling
+   with each sampler; render_debug_png of each channel on mesh_demo
+   800x600 (no kernel); colonnes' BVH with the native builder (g++ into
+   the build directory) bit-equal to numpy's, and bvh_level_image.
 
 The last three lines are a {"kernels": [...]} JSON object (K1 on each
 window, K5's tile walk on the cone and quad groups beside its colonnes
 path, K3a and K4a on the AoS route of phase 13 beside their brute
-pallas-trace paths), the card's name and power limit, and the {"ok":
+pallas-trace paths, K5 and K6 on phase 14's gradient windows), the
+card's name and power limit, and the {"ok":
 true, "device": {...}} JSON object.
 Every check raises, so any failed phase exits non-zero.
 """
@@ -155,18 +183,21 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from montecarlo_pathtracing_tpu_torch import kernels
+from montecarlo_pathtracing_tpu_torch import cli, kernels
 from montecarlo_pathtracing_tpu_torch.models import bounce_kernel as bk
+from montecarlo_pathtracing_tpu_torch.models import debug_views
 from montecarlo_pathtracing_tpu_torch.models import megakernel as mk
 from montecarlo_pathtracing_tpu_torch.models.montecarlo import raytrace
 from montecarlo_pathtracing_tpu_torch.ops import pallas_trace as ptk
@@ -176,10 +207,12 @@ from montecarlo_pathtracing_tpu_torch.ops.rng import seed_y
 from montecarlo_pathtracing_tpu_torch.ops.shapes import SOA_FNS
 from montecarlo_pathtracing_tpu_torch.ops.sort_rays import ray_sort_key
 from montecarlo_pathtracing_tpu_torch.ops.vec import safe_rcp
+from montecarlo_pathtracing_tpu_torch.render import diff
 from montecarlo_pathtracing_tpu_torch.render.camera import (
     default_rt_camera, camera_rays)
 from montecarlo_pathtracing_tpu_torch.render.renderer import (
     RenderConfig, Renderer)
+from montecarlo_pathtracing_tpu_torch.scene import bvh_builder
 from montecarlo_pathtracing_tpu_torch.scene import mesh as mesh_mod
 from montecarlo_pathtracing_tpu_torch.scene import scene as scene_mod
 from montecarlo_pathtracing_tpu_torch.scene import scenes
@@ -190,6 +223,7 @@ from montecarlo_pathtracing_tpu_torch.testing.parity import (
     fused_match, group_chunk_boxes, megakernel_match, opaque_mesh_scene,
     random_group, random_rays, trace_match)
 from montecarlo_pathtracing_tpu_torch.utils import transforms
+from montecarlo_pathtracing_tpu_torch.utils.image import read_png, tonemap
 
 K1_SOURCE = "montecarlo_pathtracing_tpu_torch/csrc/megakernel.cu"
 K1_REPLACES = "montecarlo_pathtracing_tpu/models/megakernel.py:541"
@@ -1686,10 +1720,15 @@ def phase_trace_route_parity(device, w=64, h=48, bounces=4):
 
 
 def _launches_per_pass(dev, r, kid):
-    """The route's launches of kernel kid in one pass: per tile, bounce
-    and trace (two on transparent scenes) one per mesh instance (K4a,
-    K6) or large analytic group (K3a; K5 up to trace.SPARSE_GROUP_MAX
-    padded prims, K3b past it)."""
+    """The route's launches of kernel kid in one pass of Renderer r."""
+    return r._ntiles * r.config.nb_bounces * _launches_per_bounce(dev, kid)
+
+
+def _launches_per_bounce(dev, kid):
+    """The route's launches of kernel kid in one bounce of one call: per
+    trace (two on transparent scenes) one per mesh instance (K4a, K6) or
+    large analytic group (K3a; K5 up to trace.SPARSE_GROUP_MAX padded
+    prims, K3b past it)."""
     if kid in ("K4a", "K6"):
         units = len(dev.mesh_prim_index)
     else:
@@ -1699,7 +1738,7 @@ def _launches_per_pass(dev, r, kid):
         units = sum(kid == "K3a" or (size <= trace_mod.SPARSE_GROUP_MAX)
                     == (kid == "K5") for size in sizes)
     traces = 2 if dev.has_transparent else 1
-    return r._ntiles * r.config.nb_bounces * traces * units
+    return traces * units
 
 
 def _pass_stats(kid, r, rec, out=None):
@@ -2528,6 +2567,409 @@ def phase_stubs(device, w=800, h=600, tile_rays=1 << 17):
               f"launched, image finite, mean {img.mean():.5f}", flush=True)
 
 
+# pixel_grads on the fast route at full size, one window each: (kernel,
+# scene, light, width, height, bounces, passes). All rays go in one call,
+# so each bounce launches the kernel once per large group or instance and
+# trace; the backward pass launches nothing (the trace is detached)
+GRAD_CASES = (("K5", "colonnes", 0.4, 800, 600, 6, 2),
+              ("K6", "mesh_demo", 1.2, 800, 600, 8, 1))
+
+
+def _check_leaves(g, what):
+    """Every leaf finite, and the albedo's gradient nonzero on some row;
+    returns the largest magnitude of each leaf."""
+    for name, t in zip(g._fields, g):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: the {name} gradient is not finite")
+    rows = int((g.color != 0).any(dim=1).sum())
+    if rows == 0:
+        raise AssertionError(f"{what}: the gradient is zero on every row")
+    return rows, {name: float(t.abs().max()) for name, t in zip(g._fields, g)}
+
+
+def _launch_stats(kid, rec):
+    """Kernel kid over recorded launches: median ms per launch (the card
+    kept ahead), the bound per launch from the work their inputs need,
+    and 4 of them against the plain version."""
+    ms, _, needed, _ = _time_recorded(kid, rec)
+    ops = sum(_needed_ops(kid, args, int(n[0]), int(n[1]), int(n[2]))
+              for n, (_, args, _) in zip(needed, rec))
+    nbytes = sum(_launch_bytes(kid, args) for _, args, _ in rec)
+    bound_all, bound_by = bound(nbytes, ops)
+    plain_ms, _, err = _plain_vs_kernel(kid, rec, n=4)
+    return dict(ms=float(ms.mean()), bound_ms=bound_all / len(rec),
+                bound_by=bound_by, plain_ms=plain_ms, max_abs_err=err)
+
+
+def phase_grad_window(device, kid, name, light, w, h, bounces, passes):
+    """pixel_grads on the fast route (the scene on the card, use_kernels
+    auto) at w x h through render/diff.py: kid's launches over the
+    window, nothing else launched; the wall time of the forward and of
+    the backward pass; the peak device memory; every leaf finite and the
+    albedo's gradient nonzero on some row. Then the same forward under
+    torch.no_grad with its launches recorded: kid's time per launch, its
+    bound and its plain version on them."""
+    dev = compile_scene(scenes.build(name, light), device=device)
+    o, d, tc = _rays(device, w, h)
+    p = diff.params_of(dev)
+    marks = {}
+    real_grad = diff._grad
+
+    def timed_grad(out, leaves):       # the backward pass, timed alone
+        torch.cuda.synchronize()
+        marks["forward"] = time.perf_counter()
+        g = real_grad(out, leaves)
+        torch.cuda.synchronize()
+        marks["backward"] = time.perf_counter()
+        return g
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    diff._grad = timed_grad
+    _reset_counts()
+    try:
+        t0 = time.perf_counter()
+        g = diff.pixel_grads(dev, p, o, d, tc, n_passes=passes,
+                             nb_bounces=bounces)
+    finally:
+        diff._grad = real_grad
+    counts = _all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = marks["forward"] - t0, marks["backward"] - marks["forward"]
+    want = passes * bounces * _launches_per_bounce(dev, kid)
+    if counts[kid] != want or sum(counts.values()) != counts[kid]:
+        raise AssertionError(f"{name} gradients: launches {counts}, want "
+                             f"{kid} {want} and nothing else")
+    rows, mags = _check_leaves(g, f"{name} gradients")
+    print(f"gradients: pixel_grads {name} {w}x{h} {bounces} bounces "
+          f"{passes} passes on the fast route: launches {counts}; forward "
+          f"{fwd:.4f} s, backward {bwd:.4f} s wall; peak device memory "
+          f"{peak / 2**30:.3f} GiB ({base / 2**30:.3f} GiB before); every "
+          f"leaf finite, the albedo's gradient nonzero on {rows} of "
+          f"{dev.nb_prims} rows; largest " + ", ".join(
+              f"{k} {v:.4g}" for k, v in mags.items()), flush=True)
+    rec = []
+    with torch.no_grad(), record_launches(kid, rec):
+        diff.render_mean(dev, p, o, d, tc, passes, bounces,
+                         use_kernels=True)
+    stats = _launch_stats(kid, rec)
+    print(f"{kid} over the gradient window's {len(rec)} launches: "
+          f"{stats['ms']:.4f} ms per launch (bound {stats['bound_ms']:.5f} "
+          f"ms, {stats['bound_by']}); plain {stats['plain_ms']:.3f} ms",
+          flush=True)
+    return dict(stats, launches=counts[kid], forward_s=fwd, backward_s=bwd,
+                peak_gib=peak / 2**30, size=f"{w}x{h}x{bounces}",
+                passes=passes, name=name)
+
+
+# the fast route against the dense route at a small size: (kernel, scene,
+# light, width, height, bounces, passes, leaves compared). colonnes holds
+# no emissive prim (it is lit by the sky), so its light_scale gradient is
+# exactly 0 on both routes and is not compared there; mesh_demo has an
+# emissive quad, so its light_scale is, and its instances take K6. Every
+# compared leaf must have a nonzero gradient on the dense route
+GRAD_ROUTE_CASES = (
+    ("K5", "colonnes", 0.4, 96, 72, 4, 2, ("color", "mat")),
+    ("K6", "mesh_demo", 1.2, 64, 48, 4, 1, ("color", "mat", "light_scale")))
+
+
+def phase_grad_routes(device, kid, name, light, w, h, bounces, passes,
+                      leaves):
+    """The fast route's gradients (kid) against the dense route's (torch
+    ops only, no kernel) on scene `name` at w x h: each of `leaves` within
+    1e-3 x its largest magnitude on the dense route, which must not be
+    0."""
+    dev = compile_scene(scenes.build(name, light), device=device)
+    o, d, tc = _rays(device, w, h)
+    p = diff.params_of(dev)
+    grads, counts = {}, {}
+    for kernels_on in (True, False):
+        _reset_counts()
+        grads[kernels_on] = diff.pixel_grads(
+            dev, p, o, d, tc, n_passes=passes, nb_bounces=bounces,
+            use_kernels=kernels_on)
+        counts[kernels_on] = _all_counts()
+    want = passes * bounces * _launches_per_bounce(dev, kid)
+    if counts[True][kid] != want or any(counts[False].values()):
+        raise AssertionError(f"fast vs dense {name}: launches {counts}, "
+                             f"want {kid} {want} on the fast route, none "
+                             f"on the dense")
+    _check_leaves(grads[False], f"{name} dense gradients")
+    worst = {}
+    for leaf in leaves:
+        fast, dense = getattr(grads[True], leaf), getattr(grads[False], leaf)
+        scale = float(dense.abs().max())
+        worst[leaf] = (float((fast - dense).abs().max()), scale)
+        if scale == 0.0:
+            raise AssertionError(f"fast vs dense {name} {leaf}: the dense "
+                                 f"gradient is 0, nothing is compared")
+        if worst[leaf][0] > 1e-3 * scale:
+            raise AssertionError(f"fast vs dense {name} {leaf}: "
+                                 f"{worst[leaf][0]} past 1e-3 x {scale}")
+    print(f"gradients fast ({kid}, {counts[True][kid]} launches) vs dense "
+          f"on {name} {w}x{h}x{bounces}, {passes} passes: largest "
+          f"difference " + ", ".join(f"{k} {v[0]:.3e} (of {v[1]:.4g})"
+                                     for k, v in worst.items()), flush=True)
+    return worst
+
+
+def phase_grad_fd(device, w=160, h=120, bounces=6, passes=2, eps=1e-2):
+    """One central finite difference of the albedo channel with the
+    largest gradient on colonnes (the fast route both ways), held as
+    tests/test_grad.py:39-50 holds it: rtol 0.05."""
+    dev = compile_scene(scenes.build("colonnes", 0.4), device=device)
+    o, d, tc = _rays(device, w, h)
+    p = diff.params_of(dev)
+    g = diff.pixel_grads(dev, p, o, d, tc, n_passes=passes,
+                         nb_bounces=bounces)
+    prim = int(g.color[:, 0].abs().argmax())
+    analytic = float(g.color[prim, 0])
+
+    def lum(e):
+        color = p.color.clone()
+        color[prim, 0] += e
+        with torch.no_grad():
+            return float(diff.render_mean(
+                dev, p._replace(color=color), o, d, tc, passes, bounces,
+                use_kernels=True).mean())
+
+    fd = (lum(eps) - lum(-eps)) / (2 * eps)
+    print(f"gradients: colonnes {w}x{h}x{bounces}, prim {prim} red albedo: "
+          f"analytic {analytic:.6g}, central difference {fd:.6g} (eps "
+          f"{eps})", flush=True)
+    if not np.isfinite(analytic) or analytic == 0.0 \
+            or abs(analytic - fd) > 0.05 * max(abs(fd), 1e-4):
+        raise AssertionError(f"analytic {analytic} vs fd {fd}")
+    return analytic, fd
+
+
+def phase_grad_fit(device, w=160, h=120, bounces=6, passes=2, steps=20,
+                   n_prims=3):
+    """inverse_render_fit on colonnes at w x h on the fast route: the
+    albedo of the n_prims prims with the largest albedo gradient, started
+    from (0.1, 0.6, 0.2); the loss must fall. ms per step, K5's launches
+    per step."""
+    dev = compile_scene(scenes.build("colonnes", 0.4), device=device)
+    o, d, tc = _rays(device, w, h)
+    p = diff.params_of(dev)
+    g = diff.pixel_grads(dev, p, o, d, tc, n_passes=passes,
+                         nb_bounces=bounces)
+    prims = [int(i) for i in g.color[:, :3].abs().sum(dim=1).argsort(
+        descending=True)[:n_prims]]
+    with torch.no_grad():
+        target = diff.render_mean(dev, p, o, d, tc, passes, bounces,
+                                  use_kernels=True)
+    color = p.color.clone()
+    color[prims, :3] = torch.tensor([0.1, 0.6, 0.2], device=device)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit, losses = diff.inverse_render_fit(
+        dev, target, o, d, tc, prim_ids=prims, steps=steps, lr=5e-2,
+        n_passes=passes, nb_bounces=bounces,
+        seed_params=p._replace(color=color))
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = _all_counts()
+    want = steps * passes * bounces * _launches_per_bounce(dev, "K5")
+    if counts["K5"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"fit: launches {counts}, want K5 {want}")
+    err0 = float((color[prims, :3] - p.color[prims, :3]).abs().max())
+    err1 = float((fit.color[prims, :3] - p.color[prims, :3]).abs().max())
+    print(f"inverse_render_fit colonnes {w}x{h}x{bounces}, {passes} passes, "
+          f"prims {prims}: loss {losses[0]:.6g} -> {losses[-1]:.6g} over "
+          f"{steps} steps; albedo error {err0:.4f} -> {err1:.4f}; "
+          f"{step_ms:.3f} ms per step, {counts['K5'] // steps} K5 launches "
+          f"per step", flush=True)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the fit's loss did not fall: {losses}")
+    return dict(step_ms=step_ms, k5_per_step=counts["K5"] // steps,
+                loss0=losses[0], loss1=losses[-1])
+
+
+def run_diff(name_power):
+    """Phase 14 (gradients, render/diff.py): the full-size windows' results
+    by kernel."""
+    res = {}
+    for kid, name, light, w, h, bounces, passes in GRAD_CASES:
+        r = phase_grad_window("cuda", kid, name, light, w, h, bounces, passes)
+        print(f"[{name_power}] pixel_grads {name} {w}x{h}x{bounces}, {passes}"
+              f" passes: forward {r['forward_s']:.4f} s, backward "
+              f"{r['backward_s']:.4f} s, peak {r['peak_gib']:.3f} GiB; "
+              f"{kid} {r['launches']} launches, {r['ms']:.4f} ms per launch "
+              f"(bound {r['bound_ms']:.5f} ms, plain {r['plain_ms']:.3f} ms)",
+              flush=True)
+        res[kid] = r
+    for case in GRAD_ROUTE_CASES:
+        phase_grad_routes("cuda", *case)
+    phase_grad_fd("cuda")
+    fit = phase_grad_fit("cuda")
+    print(f"[{name_power}] inverse_render_fit colonnes 160x120x6: "
+          f"{fit['step_ms']:.3f} ms per step, {fit['k5_per_step']} K5 "
+          f"launches per step", flush=True)
+    return res
+
+
+def _grad_line(kid, res):
+    line = _trace_line(kid, res)
+    line["name"] += (f", pixel_grads {res['name']} {res['size']} "
+                     f"({res['passes']} passes)")
+    return line
+
+
+def _cli(argv):
+    """cli.main(argv) with its standard output captured: (exit code, the
+    lines it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue().splitlines()
+
+
+def phase_cli(device, tmp, w=800, h=600, spp=64, mesh_spp=8):
+    """The command line on the card (phase 15): `render` of box_diffuse at
+    w x h, spp passes, 3 bounces launches K1 only, and its PNG equals the
+    tonemapped, flipped resolve of a Renderer with the same config;
+    `bench` on box_diffuse (K1, spp passes) and mesh_demo (K2, mesh_spp
+    passes of 8 bounces), its JSON line; `python -m
+    montecarlo_pathtracing_tpu_torch scenes` in a subprocess; `sampling`
+    for each sampler (no kernel). On the CPU (a rehearsal) every
+    subcommand gets --cpu and the renders --pallas: the kernels' route,
+    with their plain versions."""
+    cpu = [] if device == "cuda" else ["--cpu"]
+    size = ["--width", str(w), "--height", str(h)]
+    path = os.path.join(tmp, "render.png")
+    _reset_counts()
+    t0 = time.perf_counter()
+    rc, out = _cli(["render", "--scene", "box_diffuse", *size, "--spp",
+                    str(spp), "--bounces", "3", "--out", path]
+                   + cpu + ["--pallas"] * bool(cpu))
+    wall = time.perf_counter() - t0
+    counts = _all_counts()
+    cfg = RenderConfig(width=w, height=h, nb_bounces=3,
+                       light_intensity=1.2, device=device)
+    r = Renderer(compile_scene(scenes.build("box_diffuse", 1.2),
+                               device=device), cfg)
+    if rc != 0 or out != [path] or counts["K1"] != spp * r._ntiles \
+            or sum(counts.values()) != counts["K1"]:
+        raise AssertionError(f"CLI render: exit {rc}, printed {out}, "
+                             f"launches {counts}")
+    want = tonemap(r.run(spp))[::-1] / np.float32(255.0)
+    got = read_png(path)
+    differ = int((got != want).sum())
+    print(f"CLI render box_diffuse {w}x{h}, {spp} spp, 3 bounces: {wall:.3f} s "
+          f"wall (scene compile and PNG included), launches {counts}; its "
+          f"PNG against the Renderer's resolve: {differ} of {want.size} "
+          f"channels differ", flush=True)
+    if differ:
+        raise AssertionError("the CLI's PNG is not the Renderer's image")
+    benches = {}
+    for name, kid, extra in (
+            ("box_diffuse", "K1", ["--spp", str(spp), "--bounces", "3"]),
+            ("mesh_demo", "K2", ["--spp", str(mesh_spp), "--bounces", "8"])):
+        _reset_counts()
+        rc, out = _cli(["bench", "--scene", name, *size, *extra]
+                       + cpu + ["--pallas"] * bool(cpu))
+        counts = _all_counts()
+        line = json.loads(out[-1])
+        if rc != 0 or counts[kid] == 0 or sum(counts.values()) != \
+                counts[kid] or set(line) != {
+                    "metric", "value", "unit", "vs_baseline",
+                    "baseline_rays_per_s", "baseline_source"}:
+            raise AssertionError(f"CLI bench {name}: exit {rc}, printed "
+                                 f"{out}, launches {counts}")
+        print(f"CLI bench {name} {w}x{h} {' '.join(extra)}: launches "
+              f"{counts}; {out[-1]}", flush=True)
+        benches[name] = dict(line, launches=counts[kid])
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-m",
+                           "montecarlo_pathtracing_tpu_torch", "scenes"],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=120)
+    if proc.returncode != 0 or proc.stdout.split() != list(scenes.SCENES):
+        raise AssertionError(f"python -m ... scenes: {proc.returncode} "
+                             f"{proc.stdout!r} {proc.stderr[-2000:]}")
+    print(f"python -m montecarlo_pathtracing_tpu_torch scenes: exit 0, "
+          f"{len(scenes.SCENES)} scenes", flush=True)
+    for sampler in ("hsphere", "hsphere_wrong", "hsphere_wrong2"):
+        spath = os.path.join(tmp, f"{sampler}.png")
+        _reset_counts()
+        rc, out = _cli(["sampling", "--sampler", sampler, "--out", spath]
+                       + cpu)
+        img = read_png(spath)
+        lit = int((img.sum(-1) > 0).sum())
+        if rc != 0 or out != [spath] or img.shape != (512, 512, 3) \
+                or lit < 200 or any(_all_counts().values()):
+            raise AssertionError(f"CLI sampling {sampler}: exit {rc}, "
+                                 f"{lit} pixels lit")
+        print(f"CLI sampling {sampler}: {lit} pixels lit", flush=True)
+    return dict(render_s=wall, render_k1=spp * r._ntiles, benches=benches)
+
+
+def phase_debug_views(device, tmp, w=800, h=600, level=4):
+    """The debug views on the card (phase 15): render_debug_png of each
+    channel on mesh_demo at w x h (the dense first-hit trace: no kernel),
+    its PNG read back; colonnes' BVH built with use_native=True (g++,
+    into the build directory) bit-equal to the numpy builder and to the
+    one scene_bvh caches, and bvh_level_image of its level `level`."""
+    dev = compile_scene(scenes.build("mesh_demo"), device=device)
+    proj, view = default_rt_camera(w, h)
+    for channel in ("albedo", "normal", "depth", "prim_id"):
+        path = os.path.join(tmp, f"{channel}.png")
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = debug_views.render_debug_png(dev, proj, view, w, h, path,
+                                           channel=channel)
+        dt = time.perf_counter() - t0
+        if img.shape != (h, w, 3) or not np.isfinite(img).all() \
+                or img.max() <= 0 or any(_all_counts().values()):
+            raise AssertionError(f"debug view {channel}: not a finite, lit "
+                                 f"image, or a kernel launched")
+        if not (read_png(path) == tonemap(img.astype(np.float32))[::-1]
+                / np.float32(255.0)).all():
+            raise AssertionError(f"debug view {channel}: PNG differs")
+        print(f"render_debug_png mesh_demo {w}x{h} {channel}: {dt:.4f} s "
+              f"wall, no kernel launched, mean {img.mean():.5f}", flush=True)
+    col = compile_scene(scenes.build("colonnes"), device=device)
+    mn = col.prim_bb_min.cpu().numpy()
+    mx = col.prim_bb_max.cpu().numpy()
+    centers = ((mn + mx) / 2.0).astype(np.float32)
+    t0 = time.perf_counter()
+    native = bvh_builder.build_bvh(centers, mn, mx, use_native=True)
+    dt = time.perf_counter() - t0
+    plain = bvh_builder.build_bvh(centers, mn, mx, use_native=False)
+    cached = debug_views.scene_bvh(col)
+    for a, b, c in zip(native[:3], plain[:3], cached[:3]):
+        if not (np.array_equal(a, b) and np.array_equal(a, c)):
+            raise AssertionError("the native BVH differs from numpy's")
+    bvh_builder.check_invariants(native, col.nb_prims)
+    img = debug_views.bvh_level_image(col, *default_rt_camera(w, h), w, h,
+                                      level, path=os.path.join(tmp, "bvh.png"))
+    # the wires' colour (debug_views.bvh_level_image) over the dimmed depth
+    wires = int((img == np.float32([1.0, 0.9, 0.1])).all(-1).sum())
+    print(f"native BVH of colonnes ({col.nb_prims} prims, depth "
+          f"{native.depth}) in {dt:.4f} s (its g++ build included where "
+          f"new), bit-equal to numpy's and scene_bvh's; bvh_level_image "
+          f"level {level} at {w}x{h}: {wires} wire pixels", flush=True)
+    if wires < 100:
+        raise AssertionError("bvh_level_image drew no wires")
+
+
+def run_tools(name_power):
+    """Phase 15 (the CLI and the tools)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = phase_cli("cuda", tmp)
+        phase_debug_views("cuda", tmp)
+    print(f"[{name_power}] CLI render box_diffuse 800x600x3, 64 spp: "
+          f"{res['render_s']:.3f} s wall, {res['render_k1']} K1 launches; "
+          + "; ".join(f"bench {k}: {v['value']} rays/s, {v['launches']} "
+                      f"launches" for k, v in res["benches"].items()),
+          flush=True)
+    return res
+
+
 def run_dense(name_power):
     """Phase 13: (the AoS cells' results by kernel)."""
     res = phase_dense_route("cuda")
@@ -2638,13 +3080,15 @@ def run_trace_parity(name_power):
 def main(argv=()) -> int:
     """With no arguments every phase; `--only k1` (phases 1-3 and K1's
     windows, K1 built alone), `--only trace` (phases 1 and 7, the trace
-    kernels built alone) or `--only dense` (phases 1 and 13, K1 and the
-    trace kernels built) run one part, for a quick look."""
+    kernels built alone), `--only dense` (phases 1 and 13, K1 and the
+    trace kernels built), `--only diff` (phases 1 and 14, the trace
+    kernels built alone) or `--only tools` (phases 1 and 15, K1 and K2
+    built) run one part, for a quick look."""
     only = None
     if argv:
         if len(argv) != 2 or argv[0] != "--only" or argv[1] not in (
-                "k1", "trace", "dense"):
-            print("usage: chip_smoke.py [--only k1|trace|dense]",
+                "k1", "trace", "dense", "diff", "tools"):
+            print("usage: chip_smoke.py [--only k1|trace|dense|diff|tools]",
                   file=sys.stderr)
             return 2
         only = argv[1]
@@ -2662,6 +3106,12 @@ def main(argv=()) -> int:
     elif only == "dense":
         phase_builds(["megakernel", "trace_kernels"])
         run_dense(name_power)
+    elif only == "diff":
+        phase_builds(["trace_kernels"])
+        run_diff(name_power)
+    elif only == "tools":
+        phase_builds(["megakernel", "bounce_kernel"])
+        run_tools(name_power)
     if only:
         print(name_power)
         print(json.dumps({"ok": True, "device": {
@@ -2727,6 +3177,8 @@ def main(argv=()) -> int:
     trace["K3b"] = res4
     phase_fma(trace)
     aos = run_dense(name_power)
+    grads = run_diff(name_power)
+    run_tools(name_power)
 
     print(json.dumps({"kernels": [
         {"name": "K1 mega_kernel", "route": "cuda", "source": K1_SOURCE,
@@ -2748,6 +3200,7 @@ def main(argv=()) -> int:
         + [_trace_line(kid, trace[kid])
            for kid in ("K3a", "K3b", "K4a", "K4b", "K5", "K6")]
         + [_aos_line(kid, aos[kid]) for kid in ("K3a", "K4a")]
+        + [_grad_line(kid, grads[kid]) for kid in ("K5", "K6")]
         + [dict(line, name=line["name"].replace(
             "K5 an_walk", f"K5 an_tile_walk, a random shape-{code} group"))
            for code, line in sorted((c, _trace_line("K5", r))

@@ -9,11 +9,14 @@ version instead, which is what the CPU tests hold against the JAX package.
 
 Layer map:
   ops/       RNG, shape tests, bundle/box helpers, constants
-  scene/     host scene builder, demo scenes, device compile
-  models/    integrators and the whole-pass megakernel route
-  render/    camera + progressive renderer + checkpointing
-  utils/     transforms, PNG IO
+  scene/     host scene builder, demo scenes, device compile, BVH builder
+  models/    integrators, the megakernel and fused routes, the sampling
+             visualizer and debug views
+  render/    camera + progressive renderer + checkpointing, gradients
+  utils/     transforms, PNG IO, profiling
+  native/    the BVH builder in C++ (g++)
   csrc/      CUDA C++ kernels (sm_90a)
+  cli.py     the command line (python -m montecarlo_pathtracing_tpu_torch)
 
 This package imports torch and numpy, never jax.
 """

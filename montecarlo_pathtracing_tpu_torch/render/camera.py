@@ -150,3 +150,24 @@ def camera_rays(proj: np.ndarray, view: np.ndarray, width: int, height: int,
     d = p - o
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
     return o, d, tc
+
+
+def camera_rays_np(proj, view, width, height):
+    """NumPy twin of camera_rays for the CPU oracle (float32)."""
+    pv = np.asarray(proj, np.float64) @ np.asarray(view, np.float64)
+    inv_pv = np.linalg.inv(pv).astype(F32)
+    inv_v = np.linalg.inv(np.asarray(view, np.float64)).astype(F32)
+    o = inv_v[:3, 3].copy()
+    tx = (np.arange(width, dtype=F32) + F32(0.5)) / F32(width)
+    ty = (np.arange(height, dtype=F32) + F32(0.5)) / F32(height)
+    tc = np.stack(np.meshgrid(tx, ty, indexing="xy"), axis=-1).astype(F32)
+    c = (2.0 * tc - 1.0).astype(F32)
+    q = (
+        c[..., 0:1] * inv_pv[:, 0]
+        + c[..., 1:2] * inv_pv[:, 1]
+        + (inv_pv[:, 2] + inv_pv[:, 3])
+    ).astype(F32)
+    p = (q[..., :3] / q[..., 3:4]).astype(F32)
+    d = (p - o).astype(F32)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True).astype(F32)
+    return o, d.astype(F32), tc

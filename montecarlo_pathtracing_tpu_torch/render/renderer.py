@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..models.registry import get_integrator
-from ..scene.device import DeviceScene
+from ..scene.device import DeviceScene, compile_scene
 from ..utils.image import write_png
 from .camera import default_rt_camera, camera_rays
 
@@ -280,3 +280,12 @@ class Renderer:
                 "exact distance ties", stacklevel=2)
         self._acc = torch.as_tensor(acc, device=self.device)
         self.nb_passes = nb_passes
+
+
+def render_scene(scene_prims, config: RenderConfig, spp: int,
+                 proj=None, view=None) -> np.ndarray:
+    """Convenience one-shot: compile on config.device (with the config's
+    flat_face) + render spp passes + resolve."""
+    dev = compile_scene(scene_prims, flat_face=config.flat_face,
+                        device=config.device)
+    return Renderer(dev, config, proj, view).run(spp)
