@@ -1,7 +1,7 @@
 """GPU smoke of the PyTorch/CUDA port: build every kernel, hold each one
 against its plain PyTorch version, and drive every ported path once.
 
-    python3 chip_smoke.py [--only k1|trace|dense|diff|tools]
+    python3 chip_smoke.py [--only k1|trace|dense|diff|tools|multi]
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
 and prints no result, without them. Phases (about 13 minutes in all on
@@ -9,7 +9,8 @@ an H100, the builds included; `--only k1` runs phases 1-3 with K1 built
 alone, `--only trace` phases 1 and 7 with the trace kernels built alone,
 `--only dense` phases 1 and 13 with K1 and the trace kernels built,
 `--only diff` phases 1 and 14 with the trace kernels built alone, `--only
-tools` phases 1 and 15 with K1 and K2 built):
+tools` phases 1 and 15 and `--only multi` phases 1 and 16 with K1 and K2
+built):
 
 1. the card's name and power limit; build K1 (csrc/megakernel.cu), K2
    (csrc/bounce_kernel.cu, and its counting build for the work counters)
@@ -169,12 +170,35 @@ tools` phases 1 and 15 with K1 and K2 built):
    montecarlo_pathtracing_tpu_torch scenes` in a subprocess, sampling
    with each sampler; render_debug_png of each channel on mesh_demo
    800x600 (no kernel); colonnes' BVH with the native builder (g++ into
-   the build directory) bit-equal to numpy's, and bvh_level_image.
+   the build directory) bit-equal to numpy's, and bvh_level_image;
+16. multi-device rendering (parallel/): dryrun_multichip over the host's
+   cards; (a) make_sharded_pass over an explicit 2-shard mesh on the one
+   card ([cuda:0, cuda:0]: the shards run one after another on its
+   stream, as K1's per-device work counter needs) renders box_diffuse
+   800x600x3, 4 passes, through K1 (8 launches), its accumulator bit-equal
+   to the unsharded Renderer's, with both windows' rays/s, and K1 on a
+   shard against its plain version with its time (the card kept ahead),
+   bound and its time on all rays in one launch; (b)
+   make_sample_sharded_pass on that mesh (passes 0 and 1) against their
+   sequential sum within 1e-6; (c) mesh_demo 800x600x8, one pass, on the
+   2 shards (16 K2 launches) against one unsharded call under the fused
+   protocol, with K2 on a shard timed and against its plain version with
+   its bound; (d) Renderer(shard_devices=the card count), bit-equal to the
+   unsharded, where the host has 2 cards or more (else said so), and
+   make_mesh of more cards than the host has raises, naming the count;
+   (e) `python -m montecarlo_pathtracing_tpu_torch render --distributed`
+   in 2 processes on the card (gloo) at 800x600x3, 64 spp, a checkpoint
+   every 16 passes: the checkpointed accumulators' sum against a
+   single-process Renderer within rtol 1e-5, atol 1e-6 and process 0's
+   PNG equal to it; testing/launcher_worker.py in 2 processes crashing
+   after 16 local passes, then relaunched, resumes to the same image bit
+   for bit; each process's start, card and rendezvous times.
 
 The last three lines are a {"kernels": [...]} JSON object (K1 on each
 window, K5's tile walk on the cone and quad groups beside its colonnes
 path, K3a and K4a on the AoS route of phase 13 beside their brute
-pallas-trace paths, K5 and K6 on phase 14's gradient windows), the
+pallas-trace paths, K5 and K6 on phase 14's gradient windows, K1 and K2
+on a shard of phase 16's sharded passes), the
 card's name and power limit, and the {"ok":
 true, "device": {...}} JSON object.
 Every check raises, so any failed phase exits non-zero.
@@ -187,6 +211,7 @@ import io
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -196,6 +221,7 @@ import numpy as np
 import torch
 
 from montecarlo_pathtracing_tpu_torch import cli, kernels
+from montecarlo_pathtracing_tpu_torch.graft_entry import dryrun_multichip
 from montecarlo_pathtracing_tpu_torch.models import bounce_kernel as bk
 from montecarlo_pathtracing_tpu_torch.models import debug_views
 from montecarlo_pathtracing_tpu_torch.models import megakernel as mk
@@ -207,6 +233,8 @@ from montecarlo_pathtracing_tpu_torch.ops.rng import seed_y
 from montecarlo_pathtracing_tpu_torch.ops.shapes import SOA_FNS
 from montecarlo_pathtracing_tpu_torch.ops.sort_rays import ray_sort_key
 from montecarlo_pathtracing_tpu_torch.ops.vec import safe_rcp
+from montecarlo_pathtracing_tpu_torch.parallel.sharding import (
+    make_mesh, make_sample_sharded_pass, make_sharded_pass, shard_rays)
 from montecarlo_pathtracing_tpu_torch.render import diff
 from montecarlo_pathtracing_tpu_torch.render.camera import (
     default_rt_camera, camera_rays)
@@ -218,7 +246,8 @@ from montecarlo_pathtracing_tpu_torch.scene import scene as scene_mod
 from montecarlo_pathtracing_tpu_torch.scene import scenes
 from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
 from montecarlo_pathtracing_tpu_torch.testing.parity import (
-    FUSED_FRAC, FUSED_FRAC_STRESS, all_shapes_scene, assert_fused_protocol,
+    FUSED_FRAC, FUSED_FRAC_STRESS, FUSED_TOL, all_shapes_scene,
+    assert_fused_protocol,
     assert_megakernel_protocol, assert_trace_protocol, cull_mesh_scene,
     fused_match, group_chunk_boxes, megakernel_match, opaque_mesh_scene,
     random_group, random_rays, trace_match)
@@ -569,7 +598,7 @@ def phase_main_path(device, w=800, h=600, bounces=3, window=64,
     img_k1 = r4.run(4)
     inps = [mk.mega_inputs(dev, r4._origin, r4._dirs[t], r4._tc[t],
                            cfg.refract_ind) for t in range(r4._ntiles)]
-    acc = torch.zeros_like(r4._acc)
+    acc = torch.zeros_like(r4._accs[0])
     alive = []                    # rays in flight per tile and bounce
 
     def plain_pass(k):
@@ -976,7 +1005,7 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
     # K2 through the renderer vs the plain version on the same tiles
     r2 = Renderer(dev, cfg)
     img_k2 = r2.run(2)
-    acc = torch.zeros_like(r2._acc)
+    acc = torch.zeros_like(r2._accs[0])
 
     def plain_pass(k):
         for t in range(r2._ntiles):
@@ -1036,7 +1065,7 @@ def phase_k2_whole_path(device, w=800, h=600, bounces=3, window=4,
                          tile_rays=tile_rays, use_kernels=True, device=device)
     rs = Renderer(dev, cfg_s)
     img_k2 = rs.run(1)
-    acc = torch.zeros_like(rs._acc)
+    acc = torch.zeros_like(rs._accs[0])
     for t in range(rs._ntiles):
         acc[t].add_(bk.raytrace_fused(
             dev, rs._origin, rs._dirs[t], rs._tc[t], 0, nb_bounces=bounces,
@@ -2993,6 +3022,413 @@ def run_dense(name_power):
     return aos
 
 
+# --------------------------------------------------------------------------
+# phase 16: multi-device rendering (parallel/sharding.py, launcher.py)
+# --------------------------------------------------------------------------
+
+def _two_shards(device):
+    """An explicit 2-shard mesh on the one card (cuda:0 twice; the CPU when
+    rehearsing): the shards run one after another on its current stream."""
+    d = "cuda:0" if device == "cuda" else "cpu"
+    return make_mesh(devices=[d, d])
+
+
+def phase_sharded_main(device, w=800, h=600, bounces=3, passes=4,
+                       tile_rays=1 << 17):
+    """(a) make_sharded_pass over 2 shards on one card renders box_diffuse
+    w x h x bounces, `passes` passes, through K1 (2 launches a pass), its
+    image bit-equal to the unsharded Renderer's; K1 on a shard against
+    its plain version, timed, with its bound. (b) make_sample_sharded_pass
+    on the same mesh: passes 0 and 1 summed, against their sequential sum
+    within 1e-6."""
+    dev = compile_scene(scenes.build("box_diffuse"), device=device)
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       tile_rays=tile_rays, passes_per_call=passes,
+                       device=device)
+    r = Renderer(dev, cfg)
+    r.advance(passes)                       # warm-up (K1 loaded)
+    r.reset()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.advance(passes)
+    un_s = time.perf_counter() - t0
+    un_k1 = _all_counts()["K1"]
+    want = r.image()
+
+    o, d, tc = _rays(device, w, h)
+    mesh = _two_shards(device)
+    sd, st, _ = shard_rays(mesh, d, tc)
+    fn = make_sharded_pass(mesh, nb_bounces=bounces, route=r.route)
+    fn(dev, [torch.zeros_like(x) for x in sd], sd, st, o, 0, 1.0)  # warm-up
+    acc = [torch.zeros_like(x) for x in sd]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(passes):
+        fn(dev, acc, sd, st, o, k, cfg.refract_ind)
+    torch.cuda.synchronize()
+    sh_s = time.perf_counter() - t0
+    counts = _all_counts()
+    if counts["K1"] != passes * len(mesh) or sum(counts.values()) != \
+            counts["K1"]:
+        raise AssertionError(f"sharded window launches {counts}, want "
+                             f"{passes} x {len(mesh)} K1")
+    got = (torch.cat(acc).cpu().numpy()[: w * h] / passes).reshape(h, w, 3)
+    differ = int((got != want).any(-1).sum())
+    rays = w * h * passes * bounces
+    print(f"(a) sharded pass box_diffuse {w}x{h}x{bounces}, {passes} passes, "
+          f"2 shards of {sd[0].shape[0]} rays on {mesh[0]}: "
+          f"{counts['K1']} K1 launches, {sh_s:.4f} s wall, "
+          f"{rays / sh_s:.6g} rays/s; the unsharded Renderer ({r._ntiles} "
+          f"tiles of {r._tile} rays, {un_k1} K1 launches) {un_s:.4f} s, "
+          f"{rays / un_s:.6g} rays/s; {differ} of {w * h} pixels differ",
+          flush=True)
+    if differ:
+        raise AssertionError("the sharded accumulator is not the unsharded "
+                             "Renderer's")
+
+    # K1 on one shard: against its plain version, its time, its bound
+    inp = mk.mega_inputs(dev, o, sd[0], st[0], cfg.refract_ind)
+    k1 = mk.k1_launch(inp, seed_y(0), bounces)
+    plain = mk.mega_pass_reference(inp, seed_y(0), bounces)
+    frac, dmean, err = megakernel_match(plain.cpu(), k1.cpu())
+    assert_megakernel_protocol(plain.cpu(), k1.cpu(), "K1 on a shard")
+    ms, late = _k1_pass_ms([inp], bounces)
+    plain_ms = _time_passes(
+        lambda k: mk.mega_pass_reference(inp, seed_y(k), bounces), 1)
+    need = mk.K1Need(inp)
+    mk.mega_pass_reference(inp, seed_y(0), bounces, need=need)
+    bound_ms, bound_by, ops, nbytes = _k1_bound([inp], [need])
+    full = mk.mega_inputs(dev, o, d, tc, cfg.refract_ind)
+    full_ms, _ = _k1_pass_ms([full], bounces)
+    print(f"K1 on a shard of {inp.n} rays: {ms:.5f} ms a launch (the card "
+          f"kept ahead, median of 3, {late} late); on all {full.n} rays in "
+          f"one launch {full_ms:.5f} ms; plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}: {ops:.4g} operations, {nbytes} "
+          f"bytes); against the plain version close={frac:.4f} "
+          f"mean_diff={dmean:.2e} max_abs_err={err:.3e}", flush=True)
+
+    # (b) sample-axis DP: shard k renders pass k of every pixel
+    sfn = make_sample_sharded_pass(mesh, nb_bounces=bounces, route=r.route)
+    _reset_counts()
+    rgb = sfn(dev, d, tc, o, 0, cfg.refract_ind).cpu().numpy()
+    s_k1 = _all_counts()["K1"]
+    seq = sum(raytrace(dev, o, d, tc, k, nb_bounces=bounces,
+                       refract_ind=cfg.refract_ind, **r.route).cpu().numpy()
+              for k in range(len(mesh)))
+    s_err = float(np.abs(rgb - seq).max())
+    print(f"(b) sample-sharded pass, passes 0-1 on 2 shards: {s_k1} K1 "
+          f"launches, max abs difference from the sequential sum "
+          f"{s_err:.3e}", flush=True)
+    if s_k1 != len(mesh):
+        raise AssertionError(f"sample-sharded pass launched K1 {s_k1} times")
+    np.testing.assert_allclose(rgb, seq, rtol=1e-6, atol=1e-6)
+    return dict(rays_per_s=rays / sh_s, window_s=sh_s,
+                un_rays_per_s=rays / un_s, un_window_s=un_s,
+                launches=counts["K1"], ms=ms, full_ms=full_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=err, shard_rays=inp.n)
+
+
+def phase_sharded_fused(device, w=800, h=600, bounces=8):
+    """(c) make_sharded_pass over 2 shards on one card renders mesh_demo
+    w x h x bounces, one pass, through K2 (a launch a bounce and shard),
+    against one unsharded call on all rays under the fused protocol (K2's
+    schedules depend on the batch); K2 on a shard against its plain
+    version, timed, with its bound."""
+    dev = compile_scene(scenes.build("mesh_demo"), device=device)
+    o, d, tc = _rays(device, w, h)
+    route = dict(use_kernels=True, use_megakernel=None, use_fused=None,
+                 cull_chunks=None)
+    raytrace(dev, o, d[:4096], tc[:4096], 0, nb_bounces=bounces,
+             refract_ind=1.0, **route)      # warm-up (K2 loaded)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = raytrace(dev, o, d, tc, 0, nb_bounces=bounces, refract_ind=1.0,
+                    **route)
+    torch.cuda.synchronize()
+    un_s = time.perf_counter() - t0
+    un_k2 = _all_counts()["K2"]
+
+    mesh = _two_shards(device)
+    sd, st, _ = shard_rays(mesh, d, tc)
+    fn = make_sharded_pass(mesh, nb_bounces=bounces, route=route)
+    acc = [torch.zeros_like(x) for x in sd]
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(dev, acc, sd, st, o, 0, 1.0)
+    torch.cuda.synchronize()
+    sh_s = time.perf_counter() - t0
+    counts = _all_counts()
+    if counts["K2"] != len(mesh) * bounces or sum(counts.values()) != \
+            counts["K2"]:
+        raise AssertionError(f"sharded mesh_demo launches {counts}, want "
+                             f"{len(mesh)} x {bounces} K2")
+    got = torch.cat(acc)[: w * h]
+    share, err = fused_match(want.cpu(), got.cpu())
+    rays = w * h * bounces
+    print(f"(c) sharded pass mesh_demo {w}x{h}x{bounces}, 1 pass, 2 shards "
+          f"of {sd[0].shape[0]} rays: {counts['K2']} K2 launches, "
+          f"{sh_s:.4f} s wall, {rays / sh_s:.6g} rays/s; unsharded (one call"
+          f" on all rays, {un_k2} K2 launches) {un_s:.4f} s, "
+          f"{rays / un_s:.6g} rays/s; {int(round(share * w * h))} of {w * h}"
+          f" pixels more than {FUSED_TOL} off (share {share:.5f}), max abs "
+          f"difference {err:.3e}", flush=True)
+    assert_fused_protocol(want.cpu(), got.cpu(), "sharded mesh_demo")
+
+    # K2 on one shard: its recorded launches timed; the plain version
+    # through the same route on the shard, each call timed and its needed
+    # work counted
+    rec = []
+
+    def record(inp, stf, sti, whole_path):
+        rec.append((inp, stf.clone(), sti.clone(), whole_path))
+        bk.fused_call(inp, stf, sti, whole_path)
+
+    bk.raytrace_fused(dev, o, sd[0], st[0], 0, nb_bounces=bounces,
+                      refract_ind=1.0, call=record)
+    ms_launch, ms_pass, _, _, late = _time_launches(rec, count=False,
+                                                    reps=3)
+    plain_rec, plain_ev, need = [], [], []
+
+    def plain_call(inp, stf, sti, whole_path):
+        if not need:
+            need.append(bk.K2Need(inp, stf.device))
+        plain_rec.append((inp, stf.clone(), sti.clone(), whole_path))
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        bk.fused_call_reference(inp, stf, sti, whole_path, need=need[0])
+        e1.record()
+        plain_ev.append((e0, e1))
+
+    plain = bk.raytrace_fused(dev, o, sd[0], st[0], 0, nb_bounces=bounces,
+                              refract_ind=1.0, call=plain_call)
+    torch.cuda.synchronize()
+    plain_ms = sum(e0.elapsed_time(e1) for e0, e1 in plain_ev)
+    bound_ms, bound_by, ops, nbytes = _k2_bound(plain_rec, need[0])
+    p_share, p_err = fused_match(plain.cpu(), acc[0].cpu())
+    print(f"K2 on a shard of {sd[0].shape[0]} rays: {ms_launch:.4f} ms a "
+          f"launch, {ms_pass:.4f} ms over its {len(rec)} launches (the card "
+          f"kept ahead, median of 3, {late} late); plain {plain_ms:.1f} ms; "
+          f"bound {bound_ms:.5f} ms ({bound_by}: {ops:.4g} operations, "
+          f"{nbytes} bytes); against the plain version {p_share:.5f} of "
+          f"pixels more than {FUSED_TOL} off, max_abs_err={p_err:.3e}",
+          flush=True)
+    assert_fused_protocol(plain.cpu(), acc[0].cpu(), "K2 on a shard")
+    return dict(rays_per_s=rays / sh_s, window_s=sh_s,
+                un_rays_per_s=rays / un_s, un_window_s=un_s,
+                launches=counts["K2"], ms=ms_pass, ms_launch=ms_launch,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=p_err, shard_rays=sd[0].shape[0],
+                shard_launches=len(rec))
+
+
+def phase_renderer_mesh(device, w=800, h=600, bounces=3, passes=4):
+    """(d) Renderer(shard_devices=every card) against the unsharded one,
+    bit for bit, where the host has 2 cards or more; a mesh of more cards
+    than the host has raises, naming its count."""
+    n = torch.cuda.device_count() if device == "cuda" else 0
+    ask = max(2, n + 1)
+    try:
+        make_mesh(ask, "cuda")
+    except RuntimeError as e:
+        if f"this host has {n}" not in str(e):
+            raise
+        print(f"(d) make_mesh({ask}, 'cuda') raised: {e}", flush=True)
+    else:
+        raise AssertionError(f"make_mesh({ask}, 'cuda') did not raise")
+    if n < 2:
+        print(f"(d) Renderer(shard_devices={max(2, n)}) not run: this host "
+              f"has {n} card{'s' * (n != 1)}", flush=True)
+        return
+    dev = compile_scene(scenes.build("box_diffuse"), device=device)
+    imgs = []
+    for shards in (0, n):
+        r = Renderer(dev, RenderConfig(width=w, height=h, nb_bounces=bounces,
+                                       tile_rays=1 << 17, shard_devices=shards,
+                                       device=device))
+        imgs.append(r.run(passes))
+    differ = int((imgs[0] != imgs[1]).any(-1).sum())
+    print(f"(d) Renderer(shard_devices={n}) box_diffuse {w}x{h}x{bounces}, "
+          f"{passes} passes: {differ} pixels differ from the unsharded",
+          flush=True)
+    if differ:
+        raise AssertionError("the sharded Renderer's image differs")
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _launch_ranks(cmds, cpu, timeout=300):
+    """Start one process per command at once and wait for all: ([(exit
+    code, output)], wall s, the host clock at the start)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    if cpu:
+        env["OMP_NUM_THREADS"] = "1"
+    t_start = time.time()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    results = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            results.append((p.returncode, out))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return results, time.perf_counter() - t0, t_start
+
+
+def phase_two_process(device, tmp, w=800, h=600, bounces=3, spp=64,
+                      every=16):
+    """(e) `python -m montecarlo_pathtracing_tpu_torch render
+    --distributed` in 2 processes (gloo; both on the one card) renders
+    box_diffuse w x h x bounces at spp passes, a checkpoint every `every`:
+    the sum of the two processes' checkpointed accumulators against a
+    single-process Renderer within rtol 1e-5, atol 1e-6, the PNG that
+    process 0 wrote equal to that sum's; then testing/launcher_worker.py
+    in 2 processes, both crashing after `every` local passes, and a
+    relaunch that resumes from their checkpoints to the same image bit for
+    bit. Every process has a time limit."""
+    cpu = device != "cuda"
+    size = ["--width", str(w), "--height", str(h)]
+    ck, png = os.path.join(tmp, "cli.npz"), os.path.join(tmp, "cli.png")
+    port = _free_port()
+    results, cli_s, _ = _launch_ranks([
+        [sys.executable, "-m", "montecarlo_pathtracing_tpu_torch", "render",
+         "--distributed", "--coordinator", f"localhost:{port}",
+         "--num-processes", "2", "--process-id", str(k), "--scene",
+         "box_diffuse", *size, "--spp", str(spp), "--bounces", str(bounces),
+         "--checkpoint-every", str(every), "--checkpoint", ck, "--out", png]
+        + ["--cpu", "--pallas"] * cpu for k in (0, 1)], cpu)
+    if [rc for rc, _ in results] != [0, 0] or png not in results[0][1]:
+        raise AssertionError("2-process CLI render failed:\n" + "\n".join(
+            out[-3000:] for _, out in results))
+
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       light_intensity=1.2, device=device)
+    r = Renderer(compile_scene(scenes.build("box_diffuse", 1.2),
+                               device=device), cfg)
+    r.advance(cfg.passes_per_call)          # warm-up
+    r.reset()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = r.run(spp)
+    one_s = time.perf_counter() - t0
+    one_k1 = _all_counts()["K1"]
+    parts = []
+    for k in (0, 1):
+        with np.load(f"{ck[:-4]}.p{k}.npz") as z:
+            parts.append((int(z["nb_passes"]), z["acc"]))
+    if [p for p, _ in parts] != [spp // 2, spp]:
+        raise AssertionError(f"checkpointed passes {[p for p, _ in parts]}")
+    img = r.resolve(parts[0][1] + parts[1][1], passes=spp)
+    differ = int((img != ref).sum())
+    err = float(np.abs(img - ref).max())
+    want_png = tonemap(img)[::-1] / np.float32(255.0)
+    png_differ = int((read_png(png) != want_png).sum())
+    rays = w * h * spp * bounces
+    print(f"(e) 2-process CLI render box_diffuse {w}x{h}x{bounces}, {spp} "
+          f"spp: {cli_s:.3f} s wall for both processes (start, card, "
+          f"rendezvous and PNG included), {rays / cli_s:.6g} rays/s; one "
+          f"process in this one {one_s:.4f} s ({one_k1} K1 launches: "
+          f"{spp} passes x {r._ntiles} tiles), {rays / one_s:.6g} rays/s; "
+          f"{differ} of {img.size} channels differ from it, max abs "
+          f"{err:.3e}; the PNG of process 0: {png_differ} channels differ "
+          f"from the checkpoints' sum", flush=True)
+    np.testing.assert_allclose(img, ref, rtol=1e-5, atol=1e-6)
+    if png_differ:
+        raise AssertionError("process 0's PNG is not the gathered image")
+
+    wck, out = os.path.join(tmp, "w.npz"), os.path.join(tmp, "w.npy")
+
+    def worker(crash):
+        port = _free_port()
+        return _launch_ranks([
+            [sys.executable, "-m",
+             "montecarlo_pathtracing_tpu_torch.testing.launcher_worker",
+             "--process-id", str(k), "--num-processes", "2", "--port",
+             str(port), "--spp", str(spp), "--checkpoint-every", str(every),
+             "--checkpoint", wck, "--out", out, "--scene", "box_diffuse",
+             *size, "--bounces", str(bounces), "--tile-rays",
+             str(cfg.tile_rays), "--passes-per-call",
+             str(cfg.passes_per_call)]
+            + ["--crash-at", str(every)] * crash + ["--cpu"] * cpu
+            for k in (0, 1)], cpu)
+
+    results, crash_s, _ = worker(True)
+    if [rc for rc, _ in results] != [3, 3] or os.path.exists(out):
+        raise AssertionError("the crashing workers did not both exit 3:\n"
+                             + "\n".join(o[-3000:] for _, o in results))
+    saved = []
+    for k in (0, 1):
+        with np.load(f"{wck[:-4]}.p{k}.npz") as z:
+            saved.append(int(z["nb_passes"]))
+    results, resume_s, t_start = worker(False)
+    if [rc for rc, _ in results] != [0, 0]:
+        raise AssertionError("the relaunched workers failed:\n" + "\n".join(
+            o[-3000:] for _, o in results))
+    resumed = np.load(out)
+    r_differ = int((resumed != img).sum())
+    times = [json.loads(o.strip().splitlines()[-1]) for _, o in results]
+    start = [t["t_enter"] - t_start for t in times]
+    join = [t["t_joined"] - t["t_enter"] for t in times]
+    ready = [t["t_ready"] - t["t_joined"] for t in times]
+    print(f"(e) crash after {every} local passes: both workers exit 3 in "
+          f"{crash_s:.3f} s, checkpoints at passes {saved}; the relaunch "
+          f"resumed and finished in {resume_s:.3f} s: {r_differ} channels "
+          f"differ from the uninterrupted render. Per process of the "
+          f"relaunch: interpreter and package import "
+          f"{[f'{x:.3f}' for x in start]} s, "
+          f"torch import, card and rendezvous {[f'{x:.3f}' for x in join]} "
+          f"s, the scene on the card (CUDA context) "
+          f"{[f'{x:.3f}' for x in ready]} s", flush=True)
+    if saved != [every, spp // 2 + every] or r_differ:
+        raise AssertionError("crash and resume did not reproduce the image")
+    return dict(cli_s=cli_s, one_s=one_s, rays_per_s=rays / cli_s,
+                one_rays_per_s=rays / one_s, resume_s=resume_s,
+                crash_s=crash_s, start=start, join=join, ready=ready)
+
+
+def run_multi(name_power):
+    """Phase 16 (multi-device rendering): (the sharded K1 window's result,
+    the sharded K2 pass's)."""
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    dryrun_multichip(n)
+    print(f"dryrun_multichip({n}) on the card: the dense, sample-sharded, "
+          f"K1 and K2 routes sharded at 32x24, finite", flush=True)
+    a = phase_sharded_main("cuda")
+    c = phase_sharded_fused("cuda")
+    phase_renderer_mesh("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        e = phase_two_process("cuda", tmp)
+    print(f"[{name_power}] sharded box_diffuse 800x600x3 (2 shards, one "
+          f"card): {a['rays_per_s']:.6g} rays/s against the unsharded "
+          f"Renderer's {a['un_rays_per_s']:.6g}; {a['launches']} K1 "
+          f"launches, K1 {a['ms']:.5f} ms a shard launch ({a['shard_rays']} "
+          f"rays; {a['full_ms']:.5f} ms on all rays); sharded mesh_demo "
+          f"800x600x8: {c['rays_per_s']:.6g} rays/s against "
+          f"{c['un_rays_per_s']:.6g} unsharded, {c['launches']} K2 launches, "
+          f"K2 {c['ms_launch']:.4f} ms a shard launch; 2-process CLI render "
+          f"{e['rays_per_s']:.6g} rays/s against {e['one_rays_per_s']:.6g} "
+          f"in one process; phase 16 {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return a, c
+
+
 def _aos_line(kid, res):
     line = _trace_line(kid, res)
     line["name"] += f", montecarlo_aos {res['name']} {res['size']}"
@@ -3082,14 +3518,15 @@ def main(argv=()) -> int:
     windows, K1 built alone), `--only trace` (phases 1 and 7, the trace
     kernels built alone), `--only dense` (phases 1 and 13, K1 and the
     trace kernels built), `--only diff` (phases 1 and 14, the trace
-    kernels built alone) or `--only tools` (phases 1 and 15, K1 and K2
-    built) run one part, for a quick look."""
+    kernels built alone), `--only tools` (phases 1 and 15, K1 and K2
+    built) or `--only multi` (phases 1 and 16, K1 and K2 built) run one
+    part, for a quick look."""
     only = None
     if argv:
         if len(argv) != 2 or argv[0] != "--only" or argv[1] not in (
-                "k1", "trace", "dense", "diff", "tools"):
-            print("usage: chip_smoke.py [--only k1|trace|dense|diff|tools]",
-                  file=sys.stderr)
+                "k1", "trace", "dense", "diff", "tools", "multi"):
+            print("usage: chip_smoke.py "
+                  "[--only k1|trace|dense|diff|tools|multi]", file=sys.stderr)
             return 2
         only = argv[1]
     if not torch.cuda.is_available():
@@ -3112,6 +3549,9 @@ def main(argv=()) -> int:
     elif only == "tools":
         phase_builds(["megakernel", "bounce_kernel"])
         run_tools(name_power)
+    elif only == "multi":
+        phase_builds(["megakernel", "bounce_kernel"])
+        run_multi(name_power)
     if only:
         print(name_power)
         print(json.dumps({"ok": True, "device": {
@@ -3179,6 +3619,7 @@ def main(argv=()) -> int:
     aos = run_dense(name_power)
     grads = run_diff(name_power)
     run_tools(name_power)
+    multi_k1, multi_k2 = run_multi(name_power)
 
     print(json.dumps({"kernels": [
         {"name": "K1 mega_kernel", "route": "cuda", "source": K1_SOURCE,
@@ -3204,7 +3645,24 @@ def main(argv=()) -> int:
         + [dict(line, name=line["name"].replace(
             "K5 an_walk", f"K5 an_tile_walk, a random shape-{code} group"))
            for code, line in sorted((c, _trace_line("K5", r))
-                                    for c, r in behind.items())]}))
+                                    for c, r in behind.items())]
+        + [{"name": f"K1 mega_kernel, sharded box_diffuse 800x600x3, a "
+                    f"{multi_k1['shard_rays']}-ray shard of 2 on one card",
+            "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
+            "launches": multi_k1["launches"],
+            "max_abs_err": multi_k1["max_abs_err"], "ms": multi_k1["ms"],
+            "plain_ms": multi_k1["plain_ms"],
+            "bound_ms": multi_k1["bound_ms"],
+            "bound_by": multi_k1["bound_by"], "library_ms": None},
+           {"name": f"K2 fused_kernel, sharded mesh_demo 800x600x8, a "
+                    f"{multi_k2['shard_rays']}-ray shard of 2 on one card "
+                    f"(its {multi_k2['shard_launches']} launches)",
+            "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "launches": multi_k2["launches"],
+            "max_abs_err": multi_k2["max_abs_err"], "ms": multi_k2["ms"],
+            "plain_ms": multi_k2["plain_ms"],
+            "bound_ms": multi_k2["bound_ms"],
+            "bound_by": multi_k2["bound_by"], "library_ms": None}]}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,10 +13,13 @@ Layer map:
   models/    integrators, the megakernel and fused routes, the sampling
              visualizer and debug views
   render/    camera + progressive renderer + checkpointing, gradients
+  parallel/  ray sharding over devices, the multi-process launcher
+  testing/   parity protocols, the scalar CPU oracle, the launcher worker
   utils/     transforms, PNG IO, profiling
   native/    the BVH builder in C++ (g++)
   csrc/      CUDA C++ kernels (sm_90a)
   cli.py     the command line (python -m montecarlo_pathtracing_tpu_torch)
+  graft_entry.py  a forward pass and a multi-device dry run
 
 This package imports torch and numpy, never jax.
 """

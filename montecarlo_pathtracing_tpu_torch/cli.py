@@ -59,8 +59,8 @@ def _add_render_args(p):
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the GPU")
     p.add_argument("--devices", type=int, default=0,
-                   help="shard rays over this many devices (0 = single; "
-                        "not ported yet)")
+                   help="split each ray tile over this many devices "
+                        "(0 = one; cards, or virtual shards with --cpu)")
 
 
 def _sync(device):
@@ -84,7 +84,8 @@ def main(argv=None):
     rp.add_argument("--checkpoint-every", type=int, default=0,
                     help="save the checkpoint every N passes")
     rp.add_argument("--distributed", action="store_true",
-                    help="multi-host sample-DP render (not ported yet)")
+                    help="sample-DP render across processes "
+                         "(torch.distributed, gloo); process 0 writes --out")
     rp.add_argument("--coordinator", default=None,
                     help="host:port of process 0 (with --distributed)")
     rp.add_argument("--num-processes", type=int, default=None)
@@ -125,9 +126,11 @@ def main(argv=None):
         print(args.out)
         return 0
 
-    if getattr(args, "distributed", False) or args.devices > 1:
-        raise NotImplementedError(
-            "multi-device rendering is not ported yet: ROADMAP A.13")
+    if getattr(args, "distributed", False):
+        # before anything touches the card: the process takes its card here
+        from .parallel.launcher import init_distributed
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id)
 
     from .scene import scenes
     from .scene.device import compile_scene
@@ -195,6 +198,17 @@ def main(argv=None):
         return 0
 
     # render
+    if args.distributed:
+        from .parallel.launcher import rank_and_size, run_multihost_render
+        from .utils.image import write_png
+        img = run_multihost_render(
+            r, args.spp, checkpoint=args.checkpoint,
+            checkpoint_every=args.checkpoint_every or 64)
+        if rank_and_size()[0] == 0:
+            write_png(args.out, img)
+            print(args.out)
+        return 0
+
     if args.checkpoint and os.path.exists(args.checkpoint):
         r.load_checkpoint(args.checkpoint)
         print(f"resumed at pass {r.nb_passes}", file=sys.stderr)

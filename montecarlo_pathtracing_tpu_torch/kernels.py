@@ -10,6 +10,7 @@ without nvcc or a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +18,8 @@ import re
 import shutil
 import subprocess
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -76,6 +79,19 @@ def library_path(name: str, extra=()) -> str:
             h.update(os.path.basename(path).encode() + b"\0" + f.read())
     h.update(" ".join(_flags(name, extra)).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def on_device(device):
+    """Make `device` the CUDA runtime's current device around a launch (a
+    no-op on any other device). Each wrapper passes its tensors' stream,
+    but the host code reads the current device: K1 takes its SM count,
+    sets its dynamic shared-memory attribute and finds its `next_ray`
+    counter there, K2 its resident block count. The SM and resident
+    counts are cached on the first launch (`static`), which holds on a
+    host of identical cards."""
+    if torch.device(device).type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def build_all(names, variants=()) -> dict:

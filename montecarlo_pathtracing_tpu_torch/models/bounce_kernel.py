@@ -738,23 +738,25 @@ def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None,
                          f"{stf.device}")
     lib = _lib(work is not None)
     n_scan = _n_scan(sti)
-    err = lib.fused_call(
-        stf.data_ptr(), sti.data_ptr(), stf.shape[1], ctypes.c_float(inp.ior),
-        inp.tab.data_ptr(), inp.tab.shape[1],
-        inp.gsbb.data_ptr(), inp.gsbb.shape[1],
-        inp.group_desc.data_ptr(), len(inp.groups),
-        inp.msc.data_ptr(), inp.msi.data_ptr(), len(inp.meshes),
-        inp.cbb.data_ptr(), inp.cbb.shape[1],
-        inp.sbb.data_ptr(), inp.sbb.shape[1], inp.tpool.data_ptr(),
-        inp.acbb.data_ptr(), inp.acbb.shape[1],
-        inp.asbb.data_ptr(), inp.asbb.shape[1], inp.apool.data_ptr(),
-        inp.agr.data_ptr(), inp.ana_desc.data_ptr(), len(inp.ana_groups),
-        inp.ordr.data_ptr(), inp.entr.data_ptr(), inp.ordr.shape[2],
-        inp.mesh_stot, inp.sched_base, int(whole_path),
-        int(inp.has_transparent), int(inp.flat_face), int(inp.cull),
-        n_scan.data_ptr(), shape or 0,
-        work.data_ptr() if work is not None else ctypes.c_void_p(0),
-        torch.cuda.current_stream(stf.device).cuda_stream)
+    with kernels.on_device(stf.device):
+        err = lib.fused_call(
+            stf.data_ptr(), sti.data_ptr(), stf.shape[1],
+            ctypes.c_float(inp.ior),
+            inp.tab.data_ptr(), inp.tab.shape[1],
+            inp.gsbb.data_ptr(), inp.gsbb.shape[1],
+            inp.group_desc.data_ptr(), len(inp.groups),
+            inp.msc.data_ptr(), inp.msi.data_ptr(), len(inp.meshes),
+            inp.cbb.data_ptr(), inp.cbb.shape[1],
+            inp.sbb.data_ptr(), inp.sbb.shape[1], inp.tpool.data_ptr(),
+            inp.acbb.data_ptr(), inp.acbb.shape[1],
+            inp.asbb.data_ptr(), inp.asbb.shape[1], inp.apool.data_ptr(),
+            inp.agr.data_ptr(), inp.ana_desc.data_ptr(), len(inp.ana_groups),
+            inp.ordr.data_ptr(), inp.entr.data_ptr(), inp.ordr.shape[2],
+            inp.mesh_stot, inp.sched_base, int(whole_path),
+            int(inp.has_transparent), int(inp.flat_face), int(inp.cull),
+            n_scan.data_ptr(), shape or 0,
+            work.data_ptr() if work is not None else ctypes.c_void_p(0),
+            torch.cuda.current_stream(stf.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"K2 launch failed: {lib.fused_error_string(err).decode()}")

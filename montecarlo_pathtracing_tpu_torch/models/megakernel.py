@@ -572,25 +572,31 @@ def _check_inputs(inp: MegaInputs):
 
 
 def k1_launch(inp: MegaInputs, seed: int, nb_bounces: int) -> torch.Tensor:
-    """Launch K1 on the current CUDA stream. Returns rgb [n, 3]. Raises
-    on bad inputs and on a refused launch; counts each launch in
-    `k1_launch.launches`."""
+    """Launch K1 on the current CUDA stream of the inputs' card. Returns
+    rgb [n, 3]. Raises on bad inputs and on a refused launch; counts each
+    launch in `k1_launch.launches`.
+
+    K1's blocks take rays from one `next_ray` counter per device, reset
+    before each launch on the same stream: two launches on one card must
+    not run on two streams at once (parallel/sharding.py runs the shards
+    that share a card one after another on its current stream)."""
     _check_inputs(inp)
     if nb_bounces < 0:
         raise ValueError(f"nb_bounces={nb_bounces}")
     lib = kernels.megakernel_lib()
     out = torch.empty((inp.n, 3), dtype=torch.float32, device=inp.dirs.device)
     null = ctypes.c_void_p(0)
-    err = lib.mega_pass(
-        inp.dirs.data_ptr(), inp.tc.data_ptr(), inp.fpar.data_ptr(),
-        ctypes.c_uint32(seed),
-        inp.tab.data_ptr(), inp.tab.shape[1],
-        inp.sbb.data_ptr() if inp.cull else null,
-        inp.sbb.shape[1] if inp.cull else 0,
-        inp.ordr.data_ptr() if inp.cull else null,
-        inp.group_desc.data_ptr(), len(inp.groups),
-        nb_bounces, int(inp.has_transparent), int(inp.cull), inp.n,
-        out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
+    with kernels.on_device(out.device):
+        err = lib.mega_pass(
+            inp.dirs.data_ptr(), inp.tc.data_ptr(), inp.fpar.data_ptr(),
+            ctypes.c_uint32(seed),
+            inp.tab.data_ptr(), inp.tab.shape[1],
+            inp.sbb.data_ptr() if inp.cull else null,
+            inp.sbb.shape[1] if inp.cull else 0,
+            inp.ordr.data_ptr() if inp.cull else null,
+            inp.group_desc.data_ptr(), len(inp.groups),
+            nb_bounces, int(inp.has_transparent), int(inp.cull), inp.n,
+            out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"K1 launch failed: {lib.mega_error_string(err).decode()}")

@@ -286,11 +286,12 @@ def group_best_rows(o, d, shape_code, inv_r, trf_r, pid, cbb=None,
     counts = check_work("K3a", work, dev)
     dist, row, a, dircode = _group_outputs(m, dev)
     lib = kernels.trace_kernels_lib()
-    err = lib.group_best(
-        o.data_ptr(), d.data_ptr(), m, inv_r.data_ptr(), trf_r.data_ptr(),
-        pid.data_ptr(), ppad, int(shape_code), dist.data_ptr(),
-        row.data_ptr(), a.data_ptr(), dircode.data_ptr(), counts,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with kernels.on_device(dev):
+        err = lib.group_best(
+            o.data_ptr(), d.data_ptr(), m, inv_r.data_ptr(), trf_r.data_ptr(),
+            pid.data_ptr(), ppad, int(shape_code), dist.data_ptr(),
+            row.data_ptr(), a.data_ptr(), dircode.data_ptr(), counts,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K3a", lib, err)
     group_best_rows.launches += 1
     return dist, row, a, dircode
@@ -345,12 +346,13 @@ def group_best_culled(o, d, shape_code, inv_r, trf_r, pid, cbb, work=None):
     nsuper = -(-nchunks // GROUP_SUPER)
     sbb = torch.empty((6, nsuper), dtype=_F32, device=dev)
     lib = kernels.trace_kernels_lib()
-    err = lib.group_best_culled(
-        o.data_ptr(), d.data_ptr(), m, inv_r.data_ptr(), trf_r.data_ptr(),
-        pid.data_ptr(), ppad, cbb.data_ptr(), sbb.data_ptr(), nsuper,
-        int(shape_code), dist.data_ptr(), row.data_ptr(), a.data_ptr(),
-        dircode.data_ptr(), counts,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with kernels.on_device(dev):
+        err = lib.group_best_culled(
+            o.data_ptr(), d.data_ptr(), m, inv_r.data_ptr(), trf_r.data_ptr(),
+            pid.data_ptr(), ppad, cbb.data_ptr(), sbb.data_ptr(), nsuper,
+            int(shape_code), dist.data_ptr(), row.data_ptr(), a.data_ptr(),
+            dircode.data_ptr(), counts,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K3b", lib, err)
     group_best_rows_culled.launches += 1
     return dist, row, a, dircode
@@ -482,9 +484,10 @@ def mesh_best_rows(o, d, tri, cbb=None, sbb=None, work=None):
     a = torch.empty((m,), dtype=_F32, device=dev)
     row = torch.empty((m,), dtype=_I32, device=dev)
     lib = kernels.trace_kernels_lib()
-    err = lib.mesh_best(
-        o.data_ptr(), d.data_ptr(), m, tri.data_ptr(), ppad, a.data_ptr(),
-        row.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream)
+    with kernels.on_device(dev):
+        err = lib.mesh_best(
+            o.data_ptr(), d.data_ptr(), m, tri.data_ptr(), ppad, a.data_ptr(),
+            row.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K4a", lib, err)
     mesh_best_rows.launches += 1
     return a, row
@@ -554,10 +557,12 @@ def mesh_best_culled(o, d, tri, cbb, sbb, work=None, lanes=None):
     row = torch.empty((m,), dtype=_I32, device=dev)
     staged = torch.empty((ppad, 12), dtype=_F32, device=dev)
     lib = kernels.trace_kernels_lib()
-    err = lib.mesh_best_culled(
-        o.data_ptr(), d.data_ptr(), m, tri.data_ptr(), ppad, cbb.data_ptr(),
-        sbb.data_ptr(), nsuper, staged.data_ptr(), lanes or 0, a.data_ptr(),
-        row.data_ptr(), counts, torch.cuda.current_stream(dev).cuda_stream)
+    with kernels.on_device(dev):
+        err = lib.mesh_best_culled(
+            o.data_ptr(), d.data_ptr(), m, tri.data_ptr(), ppad,
+            cbb.data_ptr(), sbb.data_ptr(), nsuper, staged.data_ptr(),
+            lanes or 0, a.data_ptr(), row.data_ptr(), counts,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K4b", lib, err)
     mesh_best_rows_culled.launches += 1
     return a, row

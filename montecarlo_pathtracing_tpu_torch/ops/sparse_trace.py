@@ -218,12 +218,13 @@ def an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, sup_bb,
     a = torch.empty((m,), dtype=_F32, device=dev)
     dircode = torch.empty((m,), dtype=_I32, device=dev)
     lib = kernels.trace_kernels_lib()
-    err = lib.an_fold(
-        o.data_ptr(), d.data_ptr(), m, tab.data_ptr(), sup_bb.data_ptr(),
-        nblk, order.data_ptr(), tlo_sorted.data_ptr(), s, bound.data_ptr(),
-        int(shape_code), dist.data_ptr(), row.data_ptr(), a.data_ptr(),
-        dircode.data_ptr(), counts, int(per_ray),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with kernels.on_device(dev):
+        err = lib.an_fold(
+            o.data_ptr(), d.data_ptr(), m, tab.data_ptr(), sup_bb.data_ptr(),
+            nblk, order.data_ptr(), tlo_sorted.data_ptr(), s, bound.data_ptr(),
+            int(shape_code), dist.data_ptr(), row.data_ptr(), a.data_ptr(),
+            dircode.data_ptr(), counts, int(per_ray),
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K5", lib, err)
     group_best_rows_sparse.launches += 1
     return dist, row, a, dircode
@@ -313,11 +314,12 @@ def mesh_fold(o, d, tri, order, tlo_sorted, bound, work=None):
     a = torch.empty((m,), dtype=_F32, device=dev)
     row = torch.empty((m,), dtype=_I32, device=dev)
     lib = kernels.trace_kernels_lib()
-    err = lib.mesh_fold(
-        o.data_ptr(), d.data_ptr(), m, tri.data_ptr(), ppad,
-        order.data_ptr(), tlo_sorted.data_ptr(), s, bound.data_ptr(),
-        a.data_ptr(), row.data_ptr(), counts,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with kernels.on_device(dev):
+        err = lib.mesh_fold(
+            o.data_ptr(), d.data_ptr(), m, tri.data_ptr(), ppad,
+            order.data_ptr(), tlo_sorted.data_ptr(), s, bound.data_ptr(),
+            a.data_ptr(), row.data_ptr(), counts,
+            torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K6", lib, err)
     mesh_best_rows_sparse.launches += 1
     return a, row

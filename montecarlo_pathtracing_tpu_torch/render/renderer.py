@@ -10,14 +10,16 @@ long renders checkpoint and resume (SURVEY.md §5).
 
 Large images are processed in ray tiles of `tile_rays`. Pixels are laid
 out in 32x32 screen blocks so that each 4096-ray tile of the megakernel's
-super visit order is screen-compact.
+super visit order is screen-compact. With `shard_devices` > 1 each tile's
+rays are split over that many devices (parallel/sharding.py), and the
+accumulator lives as per-device shards, gathered in shard order to
+resolve and to checkpoint.
 
 Unlike the reference there is no fallback chain: a kernel that fails to
 build or launch raises.
 """
 from __future__ import annotations
 
-import inspect
 import json
 import warnings
 from dataclasses import dataclass, asdict
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from ..models.registry import get_integrator
+from ..parallel.sharding import make_mesh, make_sharded_pass
 from ..scene.device import DeviceScene, compile_scene
 from ..utils.image import write_png
 from .camera import default_rt_camera, camera_rays
@@ -64,7 +67,8 @@ class RenderConfig:
     # pixel blocks so each ray tile is screen-compact; "scanline" =
     # row-major
     passes_per_call: int = 8     # passes folded into one advance step
-    shard_devices: int = 0       # >1: shard rays over devices (A.13)
+    shard_devices: int = 0       # >1: split each ray tile over this many
+    # devices of `device`'s kind (parallel/sharding.make_mesh)
     tile_rays: int = 1 << 16
     device: str = "cuda"
 
@@ -103,9 +107,6 @@ class Renderer:
     def __init__(self, scene: DeviceScene, config: RenderConfig,
                  proj: np.ndarray | None = None,
                  view: np.ndarray | None = None):
-        if config.shard_devices > 1:
-            raise NotImplementedError(
-                "multi-device rendering is not ported yet: ROADMAP A.13")
         self.device = torch.device(config.device)
         if scene.device.type != self.device.type:
             raise ValueError(f"scene is on {scene.device}, config.device is "
@@ -136,27 +137,46 @@ class Renderer:
         self._dirs = d.reshape(self._ntiles, self._tile, 3)
         self._tc = t.reshape(self._ntiles, self._tile, 2)
         self._integrator = get_integrator(config.integrator)
+        # pixel/ray DP (shard_devices > 1): the within-tile ray axis is
+        # split over the mesh, as the JAX renderer shards it
+        # (P(None, "rays", None)); one shard on the renderer's device
+        # otherwise
+        if config.shard_devices > 1:
+            self._mesh = make_mesh(config.shard_devices, config.device)
+        else:
+            self._mesh = [self.device]
+        n = len(self._mesh)
+        sizes = [self._tile // n + (k < self._tile % n) for k in range(n)]
+        self._cuts = np.cumsum([0] + sizes)
+        self._shard_dirs = [self._dirs[:, lo:hi].to(dev).contiguous()
+                            for dev, lo, hi in self._shards()]
+        self._shard_tc = [self._tc[:, lo:hi].to(dev).contiguous()
+                          for dev, lo, hi in self._shards()]
+        self._pass = make_sharded_pass(
+            self._mesh, config.integrator, nb_bounces=config.nb_bounces,
+            detach_sampling=config.detach_sampling, date=config.date,
+            route=self.route)
         self.reset()
+
+    def _shards(self):
+        """(device, first ray, end) of each shard of a tile."""
+        return zip(self._mesh, self._cuts[:-1], self._cuts[1:])
 
     # -- accumulation protocol --------------------------------------------
 
     def _passes(self, base_pass: int, n_passes: int):
         """Accumulate passes base_pass .. base_pass + n_passes - 1, each over
-        every ray tile, in pass order. The accumulator is updated in place
-        (`add_`), so the order of the adds is the reference's. The
-        integrator gets only the route keywords its signature names, as in
-        the reference renderer (render/renderer.py:196-197)."""
-        cfg = self.config
-        params = inspect.signature(self._integrator).parameters
-        route = {k: v for k, v in self.route.items() if k in params}
+        every ray tile and each shard of it, in pass order. The accumulator
+        is updated in place (`add_`), so the order of the adds is the
+        reference's. The integrator gets only the route keywords its
+        signature names, as in the reference renderer
+        (render/renderer.py:196-197)."""
         for k in range(n_passes):
             for t in range(self._ntiles):
-                rgb = self._integrator(
-                    self.scene, self._origin, self._dirs[t], self._tc[t],
-                    base_pass + k, nb_bounces=cfg.nb_bounces,
-                    refract_ind=cfg.refract_ind, date=cfg.date,
-                    detach_sampling=cfg.detach_sampling, **route)
-                self._acc[t].add_(rgb)
+                self._pass(self.scene, [a[t] for a in self._accs],
+                           [d[t] for d in self._shard_dirs],
+                           [c[t] for c in self._shard_tc], self._origin,
+                           base_pass + k, self.config.refract_ind)
 
     @property
     def route(self) -> dict:
@@ -181,8 +201,9 @@ class Renderer:
     def reset(self):
         """Camera move / slider / scene switch analog: clear the FBO and
         pass counter (montecarlo.cpp:238-246)."""
-        self._acc = torch.zeros((self._ntiles, self._tile, 3),
-                                dtype=torch.float32, device=self.device)
+        self._accs = [torch.zeros((self._ntiles, hi - lo, 3),
+                                  dtype=torch.float32, device=dev)
+                      for dev, lo, hi in self._shards()]
         self.nb_passes = 0
 
     def render_pass(self):
@@ -205,8 +226,9 @@ class Renderer:
             self.nb_passes += ppc
         while self.nb_passes < spp:
             self.render_pass()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in dict.fromkeys(self._mesh):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     def run(self, spp: int):
         """advance(spp) + resolve: returns the [H, W, 3] image."""
@@ -220,12 +242,18 @@ class Renderer:
         w, h = self.config.render_width, self.config.render_height
         if passes is None:
             passes = self.nb_passes
-        a = self._acc if acc is None else acc
+        a = self.accumulator() if acc is None else acc
         if isinstance(a, torch.Tensor):
             a = a.detach().cpu().numpy()
         a = np.asarray(a).reshape(-1, 3)[: self._npix]
         a = a[self._inv_perm]              # undo the pixel-block layout
         return (a / max(1, passes)).reshape(h, w, 3)
+
+    def accumulator(self) -> np.ndarray:
+        """The accumulator on the host, [tiles, tile rays, 3] in the
+        pixel-block layout, its shards gathered in shard order."""
+        return np.concatenate([a.detach().cpu().numpy() for a in self._accs],
+                              axis=1)
 
     def image(self) -> np.ndarray:
         """Resolve: accumulated sum / pass count (average.frag analog).
@@ -240,7 +268,7 @@ class Renderer:
     def save_checkpoint(self, path: str):
         np.savez_compressed(
             path,
-            acc=self._acc.cpu().numpy(),
+            acc=self.accumulator(),
             nb_passes=self.nb_passes,
             config=json.dumps(asdict(self.config)),
         )
@@ -278,7 +306,12 @@ class Renderer:
                 "resuming under a different engine route or device "
                 f"{route_diff}: radiance identical up to float rounding and "
                 "exact distance ties", stacklevel=2)
-        self._acc = torch.as_tensor(acc, device=self.device)
+        if acc.shape != (self._ntiles, self._tile, 3):
+            raise ValueError(f"checkpoint accumulator {acc.shape}, want "
+                             f"{(self._ntiles, self._tile, 3)}")
+        self._accs = [torch.as_tensor(np.ascontiguousarray(acc[:, lo:hi]),
+                                      device=dev)
+                      for dev, lo, hi in self._shards()]
         self.nb_passes = nb_passes
 
 

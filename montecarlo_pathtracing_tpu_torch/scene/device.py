@@ -166,6 +166,25 @@ def from_numpy(fields: dict, device="cuda") -> DeviceScene:
     return DeviceScene(**kw)
 
 
+def to_device(scene: DeviceScene, device) -> DeviceScene:
+    """A copy of the scene with every tensor on `device` (the scene
+    itself when it already lies there): the replica a shard renders
+    against."""
+    device = torch.device(device)
+    if scene.device == device:
+        return scene
+    kw = {}
+    for f in dataclasses.fields(DeviceScene):
+        v = getattr(scene, f.name)
+        if f.metadata.get("static"):
+            kw[f.name] = v
+        elif isinstance(v, tuple):
+            kw[f.name] = tuple(t.to(device) for t in v)
+        else:
+            kw[f.name] = v.to(device)
+    return DeviceScene(**kw)
+
+
 def from_jax_scene(fields: dict, device="cuda") -> DeviceScene:
     """The JAX package's compiled DeviceScene, given as a dict of its
     fields with every array converted to numpy (tuples of arrays for the

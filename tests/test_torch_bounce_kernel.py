@@ -345,7 +345,7 @@ def test_renderer_on_mesh_demo_sums_raytrace_fused():
                        device="cpu")
     r = Renderer(dev, cfg)
     img = r.run(2)
-    acc = torch.zeros_like(r._acc)
+    acc = torch.zeros_like(r._accs[0])
     for k in range(2):
         for t in range(r._ntiles):
             acc[t] += bk.raytrace_fused(dev, r._origin, r._dirs[t], r._tc[t],

@@ -9,7 +9,8 @@ package's, on the CPU.
     Renderer's resolve, and within 2/255 of the JAX CLI's PNG on more
     than 98% of channels; a checkpointed render resumed to 4 spp writes
     the PNG of a straight 4-spp render;
-  - `--devices 2` and `--distributed` raise naming ROADMAP A.13;
+  - `--devices 2` and `--distributed` (one process) write the plain
+    render's PNG;
   - `sampling` and `bench --cpu` print what the JAX CLI prints, key for
     key;
   - read_png reads a JAX-written PNG; camera_rays_np is bit-equal to
@@ -118,11 +119,13 @@ def test_checkpoint_resume_equals_a_straight_render(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--distributed"]])
-def test_multi_device_flags_raise_naming_a13(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="A.13"):
-        cli.main(["render", "--cpu", *RENDER, *flags,
-                  "--out", str(tmp_path / "x.png")])
-    assert not os.path.exists(tmp_path / "x.png")
+def test_multi_device_flags_raise_naming_a13(tmp_path, capsys, flags):
+    """ROADMAP A.13 is ported: `--devices 2` (two CPU shards) and
+    `--distributed` with one process write the plain render's PNG."""
+    path = str(tmp_path / "x.png")
+    assert cli.main(["render", "--cpu", *RENDER, *flags, "--out", path]) == 0
+    assert _out(capsys) == [path]
+    np.testing.assert_array_equal(read_png(path), _port_png(2))
 
 
 def test_sampling_prints_what_jax_prints(tmp_path, capsys):

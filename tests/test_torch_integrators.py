@@ -10,8 +10,10 @@ the JAX package's, on the CPU at 24x18.
   - `montecarlo_aos` with use_kernels=True (the plain K3a and K4a on CPU
     tensors) against the same integrator with kernels off, by the same
     protocol, with the kernels' launch counts;
-  - a port `Renderer(use_kernels=False)` image against the JAX package's
-    scalar oracle `CPUReference` by tests/test_parity.py's protocol: with
+  - a port `Renderer(use_kernels=False)` image against the port's copy
+    of the scalar oracle `CPUReference` (testing/cpu_ref.py,
+    tests/test_torch_cpu_ref.py holds it against JAX's) by
+    tests/test_parity.py's protocol: with
     1 bounce all pixels within 1e-4 (the image is deterministic), with 3
     bounces 94% within 2e-2 abs + 1e-3 rel, image means within 5e-3;
   - every carousel name renders through the port's Renderer.
@@ -30,7 +32,6 @@ from montecarlo_pathtracing_tpu.render.camera import (
     camera_rays as jcamera_rays, default_rt_camera)
 from montecarlo_pathtracing_tpu.scene import scenes as jscenes
 from montecarlo_pathtracing_tpu.scene.device import compile_scene as jcompile
-from montecarlo_pathtracing_tpu.testing.cpu_ref import CPUReference
 from montecarlo_pathtracing_tpu_torch.models import registry
 from montecarlo_pathtracing_tpu_torch.ops import rng
 from montecarlo_pathtracing_tpu_torch.ops import trace as ptrace
@@ -38,6 +39,7 @@ from montecarlo_pathtracing_tpu_torch.render.renderer import (
     RenderConfig, Renderer)
 from montecarlo_pathtracing_tpu_torch.scene import scenes
 from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
+from montecarlo_pathtracing_tpu_torch.testing.cpu_ref import CPUReference
 from montecarlo_pathtracing_tpu_torch.testing.parity import (
     assert_megakernel_protocol)
 
@@ -147,10 +149,10 @@ def test_aos_kernels_match_dense(name, monkeypatch):
 
 def _oracle_parity(w, h, spp, bounces, min_match, atol):
     """tests/test_parity.py's _parity, with the port's dense Renderer."""
-    jprims = jscenes.build("box_diffuse")
-    jcompile(jprims)                     # sorts emissives in place
-    oracle = CPUReference(jprims)
-    r = Renderer(compile_scene(scenes.build("box_diffuse"), device="cpu"),
+    prims = scenes.build("box_diffuse")
+    dev = compile_scene(prims, device="cpu")     # sorts emissives in place
+    oracle = CPUReference(prims)
+    r = Renderer(dev,
                  RenderConfig(width=w, height=h, nb_bounces=bounces,
                               use_kernels=False, device="cpu"))
     img = r.run(spp)

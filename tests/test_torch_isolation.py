@@ -40,3 +40,25 @@ def test_port_and_chip_smoke_import_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == str(len(names) + 1)
+
+
+def test_example_twins_import_no_jax():
+    """The port's example scripts (examples/*_torch.py) import, at any
+    level, nothing of jax or the JAX package."""
+    import ast
+    import glob
+    root = os.path.dirname(os.path.dirname(os.path.abspath(port.__file__)))
+    twins = sorted(glob.glob(os.path.join(root, "examples", "*_torch.py")))
+    assert len(twins) == 3, twins
+    for path in twins:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names]
+        names += [n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module]
+        bad = [m for m in names if m.split(".")[0] in
+               ("jax", "jaxlib", "montecarlo_pathtracing_tpu")]
+        assert not bad, (path, bad)
+        assert "montecarlo_pathtracing_tpu_torch.render.renderer" in names \
+            or "montecarlo_pathtracing_tpu_torch.render.diff" in names, path

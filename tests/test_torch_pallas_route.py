@@ -147,7 +147,7 @@ def test_renderer_use_megakernel_false_takes_pallas_trace(monkeypatch):
     ref = mc.raytrace(dev, r._origin, r._dirs[0], r._tc[0], 0, nb_bounces=2,
                       refract_ind=1.3, use_kernels=True, use_megakernel=False,
                       use_fused=False, cull_chunks=False)
-    acc = torch.zeros_like(r._acc)
+    acc = torch.zeros_like(r._accs[0])
     acc[0] += ref
     np.testing.assert_array_equal(img, r.resolve(acc, 1))
 
@@ -169,7 +169,7 @@ def test_detach_sampling_render_takes_the_route(monkeypatch):
     ref = mc.raytrace(dev, r._origin, r._dirs[0], r._tc[0], 0, nb_bounces=3,
                       refract_ind=1.3, use_kernels=True, use_megakernel=False,
                       use_fused=False, sort_rays=False)
-    acc = torch.zeros_like(r._acc)
+    acc = torch.zeros_like(r._accs[0])
     acc[0] += ref
     np.testing.assert_array_equal(img, r.resolve(acc, 1))
     assert np.isfinite(img).all() and img.mean() > 0.05

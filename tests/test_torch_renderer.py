@@ -75,7 +75,7 @@ def test_resolve_matches_jax(jax_renderer):
     jcfg = jrenderer.RenderConfig(width=SIZE, height=SIZE, tile_rays=256)
     jr = jrenderer.Renderer(jcompile(jscenes.build("box_diffuse")), jcfg)
     acc = np.random.default_rng(5).random(
-        tuple(r._acc.shape), dtype=np.float32)
+        tuple(r._accs[0].shape), dtype=np.float32)
     np.testing.assert_array_equal(r.resolve(torch.as_tensor(acc), 7),
                                   jr.resolve(acc, 7))
 
@@ -121,11 +121,13 @@ def test_png_matches_jax(tmp_path):
 
 
 def test_unported_options_raise():
-    """Multi-device rendering (ROADMAP A.13) raises; every name of the
+    """Multi-device rendering (ROADMAP A.13) is ported: a 2-shard CPU
+    renderer renders the unsharded image bit for bit. Every name of the
     carousel resolves to its integrator, and an unknown name raises
     KeyError."""
-    with pytest.raises(NotImplementedError, match="A.13"):
-        _port(shard_devices=2)
+    sharded = _port(shard_devices=2)
+    assert len(sharded._accs) == 2
+    np.testing.assert_array_equal(sharded.run(2), _port().run(2))
     from montecarlo_pathtracing_tpu_torch.models import registry
     assert list(registry.INTEGRATORS) == ["montecarlo", "montecarlo_mat",
                                           "montecarlo_mat_tr",
