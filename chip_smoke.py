@@ -1,7 +1,7 @@
 """GPU smoke of the PyTorch/CUDA port: build every kernel, hold each one
 against its plain PyTorch version, and drive every ported path once.
 
-    python3 chip_smoke.py [--only k1|trace|dense|diff|tools|multi]
+    python3 chip_smoke.py [--only k1|trace|dense|diff|tools|multi|multicard]
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
 and prints no result, without them. Phases (about 13 minutes in all on
@@ -10,7 +10,8 @@ alone, `--only trace` phases 1 and 7 with the trace kernels built alone,
 `--only dense` phases 1 and 13 with K1 and the trace kernels built,
 `--only diff` phases 1 and 14 with the trace kernels built alone, `--only
 tools` phases 1 and 15 and `--only multi` phases 1 and 16 with K1 and K2
-built):
+built, `--only multicard` phases 1 and 17 with K1, K2 and the trace
+kernels built, where the host has 2 cards or more):
 
 1. the card's name and power limit; build K1 (csrc/megakernel.cu), K2
    (csrc/bounce_kernel.cu, and its counting build for the work counters)
@@ -192,13 +193,49 @@ built):
    single-process Renderer within rtol 1e-5, atol 1e-6 and process 0's
    PNG equal to it; testing/launcher_worker.py in 2 processes crashing
    after 16 local passes, then relaunched, resumes to the same image bit
-   for bit; each process's start, card and rendezvous times.
+   for bit; each process's start, card and rendezvous times;
+17. multi-card rendering, where the host has 2 cards or more (one line
+   says it was not run otherwise), at 2 cards and at the host's count n,
+   every card's launches of each kernel counted (`launches_on`), each
+   route's sharded pass run once under torch.cuda.set_sync_debug_mode
+   and its host syncs counted by line, rays/s with the scaling
+   efficiency (rays/s on n cards over n times one card's), and, under
+   torch.profiler with CUDA activity on every card, each card's busy time
+   and idle share and whether card k's first launch of a pass starts
+   before card k-1's last one ends: (f) dryrun_multichip over the n
+   cards; (a) box_diffuse 800x600x3 (K1), Renderer(shard_devices=2, n)
+   against the unsharded Renderer over 8 passes bit for bit, with each
+   card's peak memory, and make_sharded_pass over n cards against one
+   call on all rays bit for bit, K1 on the last card's shard against its
+   plain version with its time and bound; (b) BASELINE config 5
+   (examples/config5_manyrays_torch.py's colonnes 1920x1080x3, K1 culled
+   and transparent), Renderer(shard_devices=2, n) over 64 passes bit for
+   bit against one card, its render at 1024 spp in one process and with
+   --processes 2 and n --straight (a card each) within rtol 1e-5 of it,
+   and with --processes n (a stop at half, tear-down and resume) bit for
+   bit the straight run's, the processes on distinct cards; (c)
+   mesh_demo 800x600x8 (K2), 2 passes of make_sharded_pass over 2 and n
+   cards against one call on all rays on one card under the fused
+   protocol, 16 K2 launches on each card, K2 on the last card's shard
+   against its plain version; (d) make_sample_sharded_pass over n cards
+   against the sequential sum on one card within 1e-6; (e) the
+   pallas-trace route on colonnes (K5) and mesh_demo (K6) at 200x150,
+   one pass over n cards against one card under the fused protocol, the
+   kernel on the last card's shard against its plain version; (g)
+   launcher_worker.py in 2 and n processes, a card each, on box_diffuse
+   800x600x3 at 64 spp and mesh_demo 800x600x8 at 8 spp against one
+   process, one worker's crash, the others stopped and the group
+   relaunched, resumed bit for bit; `render --devices n` against
+   `--devices 0`, the same PNG; `render --distributed` in n processes of
+   a card and in 2 processes of n/2 cards against one process.
 
 The last three lines are a {"kernels": [...]} JSON object (K1 on each
 window, K5's tile walk on the cone and quad groups beside its colonnes
 path, K3a and K4a on the AoS route of phase 13 beside their brute
 pallas-trace paths, K5 and K6 on phase 14's gradient windows, K1 and K2
-on a shard of phase 16's sharded passes), the
+on a shard of phase 16's sharded passes, and where phase 17 ran K1, K2,
+K5 and K6 on the last card's shard of its sharded passes with their
+launches by card), the
 card's name and power limit, and the {"ok":
 true, "device": {...}} JSON object.
 Every check raises, so any failed phase exits non-zero.
@@ -216,6 +253,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -244,7 +282,8 @@ from montecarlo_pathtracing_tpu_torch.scene import bvh_builder
 from montecarlo_pathtracing_tpu_torch.scene import mesh as mesh_mod
 from montecarlo_pathtracing_tpu_torch.scene import scene as scene_mod
 from montecarlo_pathtracing_tpu_torch.scene import scenes
-from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
+from montecarlo_pathtracing_tpu_torch.scene.device import (
+    compile_scene, to_device)
 from montecarlo_pathtracing_tpu_torch.testing.parity import (
     FUSED_FRAC, FUSED_FRAC_STRESS, FUSED_TOL, all_shapes_scene,
     assert_fused_protocol,
@@ -1095,11 +1134,14 @@ def phase_k2_whole_path(device, w=800, h=600, bounces=3, window=4,
 # --------------------------------------------------------------------------
 
 def _reset_counts():
-    """Every kernel's launch count to 0."""
+    """Every kernel's launch count to 0, and K1's, K2's, K5's and K6's by
+    card."""
     mk.k1_launch.launches = 0
     bk.k2_launch.launches = 0
     for wrapper in TRACE_WRAPPERS.values():
         wrapper.launches = 0
+    for wrapper in CARD_WRAPPERS.values():
+        wrapper.launches_on.clear()
 
 
 def _all_counts():
@@ -3088,26 +3130,13 @@ def phase_sharded_main(device, w=800, h=600, bounces=3, passes=4,
         raise AssertionError("the sharded accumulator is not the unsharded "
                              "Renderer's")
 
-    # K1 on one shard: against its plain version, its time, its bound
-    inp = mk.mega_inputs(dev, o, sd[0], st[0], cfg.refract_ind)
-    k1 = mk.k1_launch(inp, seed_y(0), bounces)
-    plain = mk.mega_pass_reference(inp, seed_y(0), bounces)
-    frac, dmean, err = megakernel_match(plain.cpu(), k1.cpu())
-    assert_megakernel_protocol(plain.cpu(), k1.cpu(), "K1 on a shard")
-    ms, late = _k1_pass_ms([inp], bounces)
-    plain_ms = _time_passes(
-        lambda k: mk.mega_pass_reference(inp, seed_y(k), bounces), 1)
-    need = mk.K1Need(inp)
-    mk.mega_pass_reference(inp, seed_y(0), bounces, need=need)
-    bound_ms, bound_by, ops, nbytes = _k1_bound([inp], [need])
+    # K1 on one shard: against its plain version, its time, its bound; and
+    # on all rays in one launch
+    shard = _k1_shard_line(dev, o, sd, st, bounces, mesh)
     full = mk.mega_inputs(dev, o, d, tc, cfg.refract_ind)
     full_ms, _ = _k1_pass_ms([full], bounces)
-    print(f"K1 on a shard of {inp.n} rays: {ms:.5f} ms a launch (the card "
-          f"kept ahead, median of 3, {late} late); on all {full.n} rays in "
-          f"one launch {full_ms:.5f} ms; plain {plain_ms:.3f} ms; bound "
-          f"{bound_ms:.5f} ms ({bound_by}: {ops:.4g} operations, {nbytes} "
-          f"bytes); against the plain version close={frac:.4f} "
-          f"mean_diff={dmean:.2e} max_abs_err={err:.3e}", flush=True)
+    print(f"K1 on all {full.n} rays in one launch: {full_ms:.5f} ms",
+          flush=True)
 
     # (b) sample-axis DP: shard k renders pass k of every pixel
     sfn = make_sample_sharded_pass(mesh, nb_bounces=bounces, route=r.route)
@@ -3124,11 +3153,9 @@ def phase_sharded_main(device, w=800, h=600, bounces=3, passes=4,
     if s_k1 != len(mesh):
         raise AssertionError(f"sample-sharded pass launched K1 {s_k1} times")
     np.testing.assert_allclose(rgb, seq, rtol=1e-6, atol=1e-6)
-    return dict(rays_per_s=rays / sh_s, window_s=sh_s,
+    return dict(shard, rays_per_s=rays / sh_s, window_s=sh_s,
                 un_rays_per_s=rays / un_s, un_window_s=un_s,
-                launches=counts["K1"], ms=ms, full_ms=full_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=err, shard_rays=inp.n)
+                launches=counts["K1"], full_ms=full_ms)
 
 
 def phase_sharded_fused(device, w=800, h=600, bounces=8):
@@ -3180,50 +3207,12 @@ def phase_sharded_fused(device, w=800, h=600, bounces=8):
     assert_fused_protocol(want.cpu(), got.cpu(), "sharded mesh_demo")
 
     # K2 on one shard: its recorded launches timed; the plain version
-    # through the same route on the shard, each call timed and its needed
-    # work counted
-    rec = []
-
-    def record(inp, stf, sti, whole_path):
-        rec.append((inp, stf.clone(), sti.clone(), whole_path))
-        bk.fused_call(inp, stf, sti, whole_path)
-
-    bk.raytrace_fused(dev, o, sd[0], st[0], 0, nb_bounces=bounces,
-                      refract_ind=1.0, call=record)
-    ms_launch, ms_pass, _, _, late = _time_launches(rec, count=False,
-                                                    reps=3)
-    plain_rec, plain_ev, need = [], [], []
-
-    def plain_call(inp, stf, sti, whole_path):
-        if not need:
-            need.append(bk.K2Need(inp, stf.device))
-        plain_rec.append((inp, stf.clone(), sti.clone(), whole_path))
-        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        bk.fused_call_reference(inp, stf, sti, whole_path, need=need[0])
-        e1.record()
-        plain_ev.append((e0, e1))
-
-    plain = bk.raytrace_fused(dev, o, sd[0], st[0], 0, nb_bounces=bounces,
-                              refract_ind=1.0, call=plain_call)
-    torch.cuda.synchronize()
-    plain_ms = sum(e0.elapsed_time(e1) for e0, e1 in plain_ev)
-    bound_ms, bound_by, ops, nbytes = _k2_bound(plain_rec, need[0])
-    p_share, p_err = fused_match(plain.cpu(), acc[0].cpu())
-    print(f"K2 on a shard of {sd[0].shape[0]} rays: {ms_launch:.4f} ms a "
-          f"launch, {ms_pass:.4f} ms over its {len(rec)} launches (the card "
-          f"kept ahead, median of 3, {late} late); plain {plain_ms:.1f} ms; "
-          f"bound {bound_ms:.5f} ms ({bound_by}: {ops:.4g} operations, "
-          f"{nbytes} bytes); against the plain version {p_share:.5f} of "
-          f"pixels more than {FUSED_TOL} off, max_abs_err={p_err:.3e}",
-          flush=True)
-    assert_fused_protocol(plain.cpu(), acc[0].cpu(), "K2 on a shard")
-    return dict(rays_per_s=rays / sh_s, window_s=sh_s,
+    # through the same route on the shard, timed and its needed work
+    # counted
+    shard = _k2_shard(dev, o, sd, st, bounces, mesh)
+    return dict(shard, rays_per_s=rays / sh_s, window_s=sh_s,
                 un_rays_per_s=rays / un_s, un_window_s=un_s,
-                launches=counts["K2"], ms=ms_pass, ms_launch=ms_launch,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=p_err, shard_rays=sd[0].shape[0],
-                shard_launches=len(rec))
+                launches=counts["K2"])
 
 
 def phase_renderer_mesh(device, w=800, h=600, bounces=3, passes=4):
@@ -3429,6 +3418,964 @@ def run_multi(name_power):
     return a, c
 
 
+# ---------------------------------------------------------------------------
+# phase 17: multi-card rendering (--only multicard)
+# ---------------------------------------------------------------------------
+
+# the wrappers of the kernels on the multi-card routes, which count their
+# launches by card (`launches_on`), and the CUDA kernels' names in a profile
+CARD_WRAPPERS = {"K1": mk.k1_launch, "K2": bk.k2_launch,
+                 "K5": spk.group_best_rows_sparse,
+                 "K6": spk.mesh_best_rows_sparse}
+CARD_KERNELS = {"K1": "mega_kernel", "K2": "fused_kernel", "K5": "an_walk",
+                "K6": "mesh_walk"}
+EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples")
+
+
+def _sync_cards(mesh):
+    for dev in dict.fromkeys(mesh):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
+def _launches_on(kid, mesh, want=None):
+    """Kernel kid's launches on each distinct device of `mesh` since the
+    counts were reset; raises when a card launched it no time, or not
+    `want` times for each of its shards."""
+    on = CARD_WRAPPERS[kid].launches_on
+    shards = {}
+    for d in mesh:
+        shards[str(d)] = shards.get(str(d), 0) + 1
+    got = {d: on.get(d, 0) for d in shards}
+    if any(n == 0 or (want is not None and n != want * shards[d])
+           for d, n in got.items()):
+        raise AssertionError(f"{kid} launches by card {got}, want "
+                             f"{want or 'at least 1'} for each shard")
+    return got
+
+
+def sync_audit(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): the host syncs it
+    made, {"file:line": count}, at the Python line that made each."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchronizing CUDA operation" in str(w.message):
+            where = f"{os.path.relpath(w.filename)}:{w.lineno}"
+            sites[where] = sites.get(where, 0) + 1
+    return sites
+
+
+# the routes of the host-sync audit: (label, scene, light, IOR, width,
+# height, bounces, route keywords)
+AUDIT_ROUTES = (
+    ("K1 box_diffuse", "box_diffuse", 1.2, 1.0, 800, 600, 3,
+     dict(use_kernels=True, use_megakernel=True)),
+    ("K1 culled colonnes", "colonnes", 1.2, 1.0, 1920, 1080, 3,
+     dict(use_kernels=True, use_megakernel=True)),
+    ("K2 mesh_demo", "mesh_demo", 1.2, 1.0, 800, 600, 8,
+     dict(use_kernels=True, use_megakernel=False, use_fused=True)),
+    ("pallas-trace K5 colonnes", "colonnes", 0.4, 1.0, 200, 150, 6,
+     dict(use_kernels=True, use_megakernel=False, use_fused=False)),
+    ("pallas-trace K6 mesh_demo", "mesh_demo", 1.2, 1.3, 200, 150, 8,
+     dict(use_kernels=True, use_megakernel=False, use_fused=False)),
+)
+
+
+def audit_routes(device, mesh):
+    """One make_sharded_pass over `mesh` on each route of AUDIT_ROUTES
+    (after a warm-up pass) under sync_audit: {label: {"file:line":
+    count}}. It uses only what the port has had since its multi-device
+    slice, so that it also counts an older checkout's syncs when that
+    checkout's package comes first on the path."""
+    out = {}
+    for label, name, light, ior, w, h, bounces, route in AUDIT_ROUTES:
+        dev = compile_scene(scenes.build(name, light), device=device)
+        o, d, tc = _rays(device, w, h)
+        sd, st, _ = shard_rays(mesh, d, tc)
+        fn = make_sharded_pass(mesh, nb_bounces=bounces, route=route)
+        acc = [torch.zeros_like(x) for x in sd]
+        fn(dev, acc, sd, st, o, 0, ior)
+        _sync_cards(mesh)
+        out[label] = sync_audit(lambda: fn(dev, acc, sd, st, o, 1, ior))
+        _sync_cards(mesh)
+        print(f"sync audit, one sharded pass of {label} {w}x{h}x{bounces} "
+              f"over {[str(m) for m in mesh]}: "
+              f"{sum(out[label].values())} host syncs"
+              + (f" at {out[label]}" if out[label] else ""), flush=True)
+    return out
+
+
+def _merged_ms(spans):
+    """Total ms of the union of (start, end) intervals in µs."""
+    total, end = 0.0, -np.inf
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def _together_ms(spans):
+    """ms during which two or more cards are busy at once, from each
+    card's (start, end) intervals in µs."""
+    edges = []
+    for card_spans in spans.values():
+        merged = []
+        for s, e in sorted(card_spans):
+            if merged and s <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], e)
+            else:
+                merged.append([s, e])
+        edges += [(s, 1) for s, _ in merged] + [(e, -1) for _, e in merged]
+    total, busy, last = 0.0, 0, None
+    for t, step in sorted(edges):
+        if busy >= 2:
+            total += t - last
+        busy += step
+        last = t
+    return total / 1e3
+
+
+def card_profile(fn, mesh, kid, per_pass):
+    """fn() (a window of passes over the cards of `mesh`, ending in a sync
+    of every card) under torch.profiler with CUDA activity on every card:
+    per card its busy ms (the union of its kernels' and copies'
+    intervals on the profiler's common clock) and idle share of the
+    window's host wall time, the ms during which two or more cards are
+    busy at once, and whether the cards overlap: for each pass and each
+    card k > 0, whether k's first launch of kernel kid in the pass starts
+    before card k-1's last one of the pass ends (`per_pass` launches of
+    kid a card and pass; where a pass queues its tiles on every card in
+    turn, this holds whenever a card has more than one tile). Returns a
+    dict; device time not seen by the profiler reads "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cards = [torch.device(d) for d in dict.fromkeys(mesh)]
+    _sync_cards(cards)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        _sync_cards(cards)
+        wall = time.perf_counter() - t0
+    spans, launches = {}, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        spans.setdefault(e.device_index, []).append(span)
+        if CARD_KERNELS[kid] in e.name:
+            launches.setdefault(e.device_index, []).append(span)
+    busy = {f"cuda:{i}": _merged_ms(s) for i, s in sorted(spans.items())}
+    out = {"wall_ms": wall * 1e3, "busy_ms": busy,
+           "idle": {c: 1.0 - ms / (wall * 1e3) for c, ms in busy.items()},
+           "together_ms": _together_ms(spans)}
+    idx = [c.index for c in cards if c.type == "cuda"]
+    if len(idx) < 2 or any(i not in launches for i in idx):
+        out["overlap"] = "not measured"
+        return out
+    passes = [sorted(launches[i]) for i in idx]
+    n_pass = min(len(p) for p in passes) // per_pass
+    pairs = overlapped = 0
+    lead = []
+    for p in range(n_pass):
+        chunk = [x[p * per_pass:(p + 1) * per_pass] for x in passes]
+        for k in range(1, len(chunk)):
+            pairs += 1
+            overlapped += chunk[k][0][0] < chunk[k - 1][-1][1]
+        # how far the last card's first launch starts after the first
+        # card's first launch, µs
+        lead.append(chunk[-1][0][0] - chunk[0][0][0])
+    out["overlap"] = f"{overlapped} of {pairs}"
+    out["last_card_start_us"] = float(np.median(lead)) if lead else None
+    return out
+
+
+def _profile_line(what, prof):
+    busy = ", ".join(f"{c} {ms:.4f} ms (idle {prof['idle'][c]:.4f})"
+                     for c, ms in prof["busy_ms"].items())
+    print(f"{what} under torch.profiler: {prof['wall_ms']:.4f} ms wall; "
+          f"device busy by card: {busy or 'not measured'}"
+          + (f", two or more cards at once {prof['together_ms']:.4f} ms"
+             if busy else "") + "; card k's first "
+          f"launch of a pass before card k-1's last one ended: "
+          f"{prof['overlap']}" + (
+              f"; the last card starts {prof['last_card_start_us']:.1f} us "
+              f"after the first (median over passes)"
+              if prof.get("last_card_start_us") is not None else ""),
+          flush=True)
+
+
+def _peak_memory(mesh):
+    """Peak bytes allocated on each card since the last reset."""
+    return {str(d): torch.cuda.max_memory_allocated(d)
+            for d in dict.fromkeys(mesh) if torch.device(d).type == "cuda"}
+
+
+def _reset_peaks(mesh):
+    for d in dict.fromkeys(mesh):
+        if torch.device(d).type == "cuda":
+            torch.cuda.reset_peak_memory_stats(d)
+
+
+def _timed_window(run, mesh):
+    """Host seconds of run(), every card of `mesh` idle before and synced
+    after."""
+    _sync_cards(mesh)
+    t0 = time.perf_counter()
+    run()
+    _sync_cards(mesh)
+    return time.perf_counter() - t0
+
+
+def _scaling(rays, secs):
+    """{cards: (rays/s, efficiency against one card)} from {cards: s}."""
+    one = rays / secs[1]
+    return {n: (rays / s, rays / s / (n * one)) for n, s in secs.items()}
+
+
+def _scaling_line(what, scale):
+    print(f"{what}: " + "; ".join(
+        f"{n} card{'s' * (n > 1)} {rps:.6g} rays/s (efficiency {eff:.4f})"
+        for n, (rps, eff) in sorted(scale.items())), flush=True)
+
+
+def _k1_shard_line(dev, o, sd, st, bounces, mesh):
+    """K1 on the last card's shard: against its plain version, its time
+    (the card kept ahead), the plain version's and its bound."""
+    last = mesh[-1]
+    with kernels.on_device(last):   # events, sleeps and syncs on it
+        inp = mk.mega_inputs(to_device(dev, last), o.to(last), sd[-1], st[-1],
+                             1.0)
+        k1 = mk.k1_launch(inp, seed_y(0), bounces)
+        plain = mk.mega_pass_reference(inp, seed_y(0), bounces)
+        frac, dmean, err = megakernel_match(plain.cpu(), k1.cpu())
+        assert_megakernel_protocol(plain.cpu(), k1.cpu(),
+                                   f"K1 on the shard on {last}")
+        ms, late = _k1_pass_ms([inp], bounces)
+        plain_ms = _time_passes(
+            lambda k: mk.mega_pass_reference(inp, seed_y(k), bounces), 1)
+        need = mk.K1Need(inp)
+        mk.mega_pass_reference(inp, seed_y(0), bounces, need=need)
+        bound_ms, bound_by, ops, nbytes = _k1_bound([inp], [need])
+    print(f"K1 on the shard of {inp.n} rays on {last}: {ms:.5f} ms a launch "
+          f"(the card kept ahead, median of 3, {late} late); plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}: "
+          f"{ops:.4g} operations, {nbytes} bytes); against the plain version "
+          f"close={frac:.4f} mean_diff={dmean:.2e} max_abs_err={err:.3e}",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, max_abs_err=err, shard_rays=inp.n,
+                card=str(last))
+
+
+def phase_mc_box(device, counts, w=800, h=600, bounces=3, passes=8,
+                 tile_rays=1 << 17):
+    """(a) K1 on box_diffuse w x h x bounces: Renderer(shard_devices=n) for
+    n in `counts` against the unsharded Renderer over the same `passes`
+    passes, bit for bit, with rays/s, the scaling efficiency, K1's
+    launches by card, the cards' busy time, idle share and overlap under
+    torch.profiler and their peak memory; make_sharded_pass over the most
+    cards against one call on all rays, bit for bit; K1 on the last card's
+    shard against its plain version with its time and bound."""
+    dev = compile_scene(scenes.build("box_diffuse"), device=device)
+    secs, imgs, by_card, total = {}, {}, {}, {}
+    for n in [1] + counts:
+        cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                           tile_rays=tile_rays, passes_per_call=passes,
+                           shard_devices=n if n > 1 else 0, device=device)
+        r = Renderer(dev, cfg)
+        r.advance(passes)                   # warm-up: K1 loaded on each card
+        r.reset()
+        _reset_counts()
+        _reset_peaks(r._mesh)
+        secs[n] = _timed_window(lambda: r.advance(passes), r._mesh)
+        imgs[n] = r.image()
+        total[n] = mk.k1_launch.launches
+        if n > 1:
+            by_card[n] = _launches_on("K1", r._mesh,
+                                      want=passes * r._ntiles)
+        differ = int((imgs[n] != imgs[1]).any(-1).sum())
+        print(f"(a) box_diffuse {w}x{h}x{bounces}, {passes} passes, "
+              f"Renderer(shard_devices={n if n > 1 else 0}) on "
+              f"{[str(d) for d in r._mesh]}: {secs[n]:.4f} s, "
+              f"{mk.k1_launch.launches} K1 launches"
+              + (f" by card {by_card[n]}" if n > 1 else "")
+              + f"; peak memory by card {_peak_memory(r._mesh)} bytes; "
+              f"{differ} of {w * h} pixels differ from one card", flush=True)
+        if differ:
+            raise AssertionError(f"Renderer(shard_devices={n}) differs")
+    scale = _scaling(w * h * passes * bounces, secs)
+    _scaling_line(f"(a) box_diffuse {w}x{h}x{bounces} in one process",
+                  scale)
+    prof = card_profile(lambda: r.advance(r.nb_passes + passes), r._mesh,
+                        "K1", r._ntiles)
+    _profile_line(f"(a) {passes} passes on {len(r._mesh)} cards", prof)
+
+    # make_sharded_pass over the most cards against one call on all rays
+    o, d, tc = _rays(device, w, h)
+    mesh = r._mesh
+    sd, st, _ = shard_rays(mesh, d, tc)
+    fn = make_sharded_pass(mesh, nb_bounces=bounces, route=r.route)
+    acc = [torch.zeros_like(x) for x in sd]
+    _reset_counts()
+    fn(dev, acc, sd, st, o, 0, 1.0)
+    one_each = _launches_on("K1", mesh, want=1)
+    got = torch.cat([a.cpu() for a in acc])[: w * h]
+    want = raytrace(dev, o, d, tc, 0, nb_bounces=bounces, refract_ind=1.0,
+                    **r.route).cpu()
+    differ = int((got != want).any(-1).sum())
+    print(f"(a) make_sharded_pass over {len(mesh)} cards, shards of "
+          f"{sd[0].shape[0]} rays, K1 by card {one_each}: {differ} of "
+          f"{w * h} pixels differ from one call on all rays", flush=True)
+    if differ:
+        raise AssertionError("the sharded pass differs from one call")
+    shard = _k1_shard_line(dev, o, sd, st, bounces, mesh)
+    return dict(shard, scale=scale, prof=prof, launches=total[max(counts)],
+                by_card=by_card[max(counts)])
+
+
+def _example(name):
+    """The example script examples/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(EXAMPLES, name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(argv, cpu, timeout=1200):
+    """examples/config5_manyrays_torch.py with `argv` in a subprocess:
+    its manyrays.json."""
+    results, _, _ = _launch_ranks(
+        [[sys.executable, os.path.join(EXAMPLES, "config5_manyrays_torch.py"),
+          *argv]], cpu, timeout=timeout)
+    rc, out = results[0]
+    if rc != 0:
+        raise AssertionError(f"config5_manyrays_torch.py {argv} exit {rc}:\n"
+                             + out[-3000:])
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_mc_config5(device, counts, tmp, w=1920, h=1080, spp=1024,
+                     window=64, bounces=3):
+    """(b) BASELINE config 5 (colonnes, the example's pose, K1 culled and
+    transparent): Renderer(shard_devices=n) over `window` passes, bit for
+    bit against one card, with rays/s, launches by card and the cards' idle
+    share and overlap; the example's render at spp passes in one process
+    (a Renderer here) and with --processes n --straight (one card each)
+    for n in `counts`: bit for bit the one process's render of the same
+    blocks summed in process order, and against its sequential sum within
+    the bound of float32 summation; with --processes n (stop at half, tear
+    down, resume), bit for bit the straight run's, every process on a
+    card of its own."""
+    ex = _example("config5_manyrays_torch")
+    size = ["--width", str(w), "--height", str(h), "--spp", str(spp),
+            "--bounces", str(bounces)] + ["--cpu"] * (device == "cpu")
+    scene, cfg, proj, view = ex._config(ex._args(size))
+    dev = compile_scene(scene, device=device)
+    secs, imgs = {}, {}
+    for n in [1] + counts:
+        r = Renderer(dev, dataclasses.replace(
+            cfg, shard_devices=n if n > 1 else 0), proj, view)
+        r.advance(cfg.passes_per_call)      # warm-up
+        r.reset()
+        _reset_counts()
+        secs[n] = _timed_window(lambda: r.advance(window), r._mesh)
+        imgs[n] = r.image()
+        # (--cpu renders the example on the dense route: no K1 there)
+        by = (_launches_on("K1", r._mesh, want=window * r._ntiles)
+              if n > 1 and cfg.use_kernels else {})
+        differ = int((imgs[n] != imgs[1]).any(-1).sum())
+        print(f"(b) config 5 colonnes {w}x{h}x{bounces}, {window} passes on "
+              f"{n} card{'s' * (n > 1)}: {secs[n]:.4f} s, "
+              f"{mk.k1_launch.launches} K1 launches"
+              f"{f' by card {by}' * (n > 1)};"
+              f" {differ} of {w * h} pixels differ from one card", flush=True)
+        if differ:
+            raise AssertionError(f"config 5 on {n} cards differs")
+    scale = _scaling(w * h * window * bounces, secs)
+    _scaling_line(f"(b) config 5 {w}x{h}x{bounces} in one process", scale)
+    prof = card_profile(lambda: r.advance(r.nb_passes + cfg.passes_per_call),
+                        r._mesh, "K1", r._ntiles)
+    _profile_line(f"(b) {cfg.passes_per_call} passes on {len(r._mesh)} "
+                  f"cards", prof)
+
+    # one process, spp passes: the Renderer's sequential sum, and in the
+    # same passes each process's block of a run in n processes, summed in
+    # process order as run_multihost_render sums them (each pass is added
+    # to a zero buffer, exactly its rgb, then to both)
+    r = Renderer(dev, cfg, proj, view)
+    seq = torch.zeros_like(r._accs[0])
+    one = torch.zeros_like(seq)
+    blocks = {n: [torch.zeros_like(seq) for _ in range(n)] for n in counts}
+
+    def one_process():
+        for p in range(spp):
+            one.zero_()
+            r._accs = [one]
+            r._passes(p, 1)
+            seq.add_(one)
+            for n, parts in blocks.items():
+                parts[p * n // spp].add_(one)
+
+    one_s = _timed_window(one_process, r._mesh)
+    ref = r.resolve(seq, passes=spp)
+    rays = w * h * spp * bounces
+    # recursive float32 summation of spp passes: each sum within
+    # spp * 2**-24 of the sum of its (non-negative) terms
+    rtol = 2 * spp * 2.0 ** -24
+    proc = {1: (one_s, one_s)}
+    straight = {}
+    for n in counts:
+        stats = _run_example(size + ["--processes", str(n), "--straight",
+                                     "--out", os.path.join(tmp, f"s{n}")],
+                             device == "cpu")
+        straight[n] = np.load(os.path.join(tmp, f"s{n}",
+                                           "manyrays_image.npy"))
+        proc[n] = (stats["render_s"], stats["wall_s"])
+        parts = [a.cpu().numpy() for a in blocks[n]]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        differ = int((straight[n] != r.resolve(total, passes=spp)).sum())
+        off = np.abs(straight[n] - ref)
+        print(f"(b) config 5 at {spp} spp in {n} processes on "
+              f"{stats['devices']}: {stats['render_s']:.3f} s for the "
+              f"longest process's block (its scene on its card to its last "
+              f"pass), {stats['wall_s']} s wall with the processes' starts; "
+              f"one process {one_s:.3f} s; {differ} channels differ from its "
+              f"blocks summed in process order; from its sequential sum max "
+              f"abs difference {off.max():.3e}, max relative "
+              f"{(off / np.maximum(ref, 1e-30)).max():.3e} (bound {rtol:.3e}),"
+              f" {int((off > 1e-5 * np.abs(ref) + 1e-6).sum())} channels past "
+              f"rtol 1e-5", flush=True)
+        if differ:
+            raise AssertionError(f"config 5 in {n} processes is not its "
+                                 f"blocks' sum")
+        np.testing.assert_allclose(straight[n], ref, rtol=rtol, atol=0)
+        _distinct_cards(device, stats["devices"], n)
+    n = max(counts)
+    stats = _run_example(size + ["--processes", str(n), "--out",
+                                 os.path.join(tmp, f"r{n}")], device == "cpu")
+    resumed = np.load(os.path.join(tmp, f"r{n}", "manyrays_image.npy"))
+    r_differ = int((resumed != straight[n]).sum())
+    print(f"(b) config 5 in {n} processes on {stats['devices']}, each "
+          f"stopped after its first half (checkpoints at passes "
+          f"{stats['resumed_at_pass']}) and resumed in new processes: "
+          f"{stats['wall_s']} s wall; {r_differ} channels differ from the "
+          f"straight run", flush=True)
+    if r_differ:
+        raise AssertionError("config 5's resume is not bit-identical")
+    _distinct_cards(device, stats["devices"], n)
+    pscale = {k: (rays / s[0], rays / s[0] / (k * rays / one_s))
+              for k, s in proc.items()}
+    _scaling_line(f"(b) config 5 at {spp} spp, one process per card "
+                  f"(render, without the processes' starts)", pscale)
+    return dict(scale=scale, pscale=pscale, prof=prof, one_s=one_s,
+                proc=proc)
+
+
+def _distinct_cards(device, devices, n):
+    """Raise unless the n processes' devices are n distinct cards (on the
+    card, where the host has n of them)."""
+    if device == "cuda" and torch.cuda.device_count() >= n \
+            and len(set(devices)) != n:
+        raise AssertionError(f"{n} processes on {devices}: not one card each")
+
+
+def _k2_shard(dev, o, sd, st, bounces, mesh):
+    """K2 on the last card's shard: its recorded launches timed (the card
+    kept ahead), the plain version through the same route with its time
+    and needed work, and the two against each other."""
+    last = mesh[-1]
+    with kernels.on_device(last):   # events, sleeps and syncs on it
+        s, o = to_device(dev, last), o.to(last)
+        rec = []
+
+        def record(inp, stf, sti, whole_path):
+            rec.append((inp, stf.clone(), sti.clone(), whole_path))
+            bk.fused_call(inp, stf, sti, whole_path)
+
+        got = bk.raytrace_fused(s, o, sd[-1], st[-1], 0, nb_bounces=bounces,
+                                refract_ind=1.0, call=record)
+        ms_launch, ms_pass, _, _, late = _time_launches(rec, count=False,
+                                                        reps=3)
+        plain_rec, plain_ev, need = [], [], []
+
+        def plain_call(inp, stf, sti, whole_path):
+            if not need:
+                need.append(bk.K2Need(inp, stf.device))
+            plain_rec.append((inp, stf.clone(), sti.clone(), whole_path))
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            bk.fused_call_reference(inp, stf, sti, whole_path, need=need[0])
+            e1.record()
+            plain_ev.append((e0, e1))
+
+        plain = bk.raytrace_fused(s, o, sd[-1], st[-1], 0, nb_bounces=bounces,
+                                  refract_ind=1.0, call=plain_call)
+        torch.cuda.synchronize()
+        plain_ms = sum(e0.elapsed_time(e1) for e0, e1 in plain_ev)
+        bound_ms, bound_by, ops, nbytes = _k2_bound(plain_rec, need[0])
+    share, err = fused_match(plain.cpu(), got.cpu())
+    print(f"K2 on the shard of {sd[-1].shape[0]} rays on {last}: "
+          f"{ms_launch:.4f} ms a launch, {ms_pass:.4f} ms over its "
+          f"{len(rec)} launches (the card kept ahead, median of 3, {late} "
+          f"late); plain {plain_ms:.1f} ms; bound {bound_ms:.5f} ms "
+          f"({bound_by}: {ops:.4g} operations, {nbytes} bytes); against the "
+          f"plain version {share:.5f} of pixels more than {FUSED_TOL} off, "
+          f"max_abs_err={err:.3e}", flush=True)
+    assert_fused_protocol(plain.cpu(), got.cpu(), f"K2 on the shard on {last}")
+    return dict(ms=ms_pass, ms_launch=ms_launch, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                shard_rays=sd[-1].shape[0], shard_launches=len(rec),
+                card=str(last))
+
+
+def phase_mc_mesh(device, counts, w=800, h=600, bounces=8, passes=2):
+    """(c) K2 on mesh_demo w x h x bounces: `passes` passes of
+    make_sharded_pass over n cards for n in `counts` against one call on
+    all rays a pass on one card, under the fused protocol, with rays/s,
+    the scaling efficiency, K2's launches by card (a launch a bounce and
+    pass on each), the cards' busy time, idle share, overlap and peak
+    memory; K2 on the last card's shard against its plain version with
+    its time and bound."""
+    dev = compile_scene(scenes.build("mesh_demo"), device=device)
+    o, d, tc = _rays(device, w, h)
+    route = dict(use_kernels=True, use_megakernel=None, use_fused=None,
+                 cull_chunks=None)
+
+    def one_card():
+        return sum(raytrace(dev, o, d, tc, k, nb_bounces=bounces,
+                            refract_ind=1.0, **route) for k in range(passes))
+
+    raytrace(dev, o, d[:4096], tc[:4096], 0, nb_bounces=bounces,
+             refract_ind=1.0, **route)      # warm-up
+    _reset_counts()
+    out = {}
+    secs = {1: _timed_window(lambda: out.update(want=one_card()),
+                             [dev.device])}
+    want = out["want"].cpu() / passes
+    for n in counts:
+        mesh = make_mesh(n, device)
+        sd, st, _ = shard_rays(mesh, d, tc)
+        fn = make_sharded_pass(mesh, nb_bounces=bounces, route=route)
+        wd, wt, _ = shard_rays(mesh, d[:4096 * n], tc[:4096 * n])
+        fn(dev, [torch.zeros_like(x) for x in wd], wd, wt, o, 0, 1.0)
+        acc = [torch.zeros_like(x) for x in sd]
+        _reset_counts()
+        _reset_peaks(mesh)
+
+        def window():
+            for k in range(passes):
+                fn(dev, acc, sd, st, o, k, 1.0)
+
+        secs[n] = _timed_window(window, mesh)
+        by = _launches_on("K2", mesh, want=passes * bounces)
+        got = torch.cat([a.cpu() for a in acc])[: w * h] / passes
+        share, err = fused_match(want, got)
+        print(f"(c) mesh_demo {w}x{h}x{bounces}, {passes} passes over {n} "
+              f"cards: {secs[n]:.4f} s, K2 by card {by}; peak memory by card "
+              f"{_peak_memory(mesh)} bytes; {int(round(share * w * h))} of "
+              f"{w * h} pixels more than {FUSED_TOL} off one card (share "
+              f"{share:.5f}), max abs difference {err:.3e}", flush=True)
+        assert_fused_protocol(want, got, f"mesh_demo on {n} cards")
+    scale = _scaling(w * h * passes * bounces, secs)
+    _scaling_line(f"(c) mesh_demo {w}x{h}x{bounces} in one process", scale)
+    prof = card_profile(window, mesh, "K2", bounces)
+    _profile_line(f"(c) {passes} passes on {n} cards", prof)
+    shard = _k2_shard(dev, o, sd, st, bounces, mesh)
+    return dict(shard, scale=scale, prof=prof,
+                launches=passes * bounces * len(mesh), by_card=by)
+
+
+def phase_mc_sample(device, n, w=800, h=600, bounces=3):
+    """(d) make_sample_sharded_pass over n cards (passes 0 .. n-1 of
+    box_diffuse, one K1 launch on each card) against their sequential sum
+    on one card within 1e-6, the sum on the first card."""
+    dev = compile_scene(scenes.build("box_diffuse"), device=device)
+    o, d, tc = _rays(device, w, h)
+    route = dict(use_kernels=True, use_megakernel=True, use_fused=False,
+                 cull_chunks=None)
+    mesh = make_mesh(n, device)
+    sfn = make_sample_sharded_pass(mesh, nb_bounces=bounces, route=route)
+    _reset_counts()
+    rgb = sfn(dev, d, tc, o, 0, 1.0)
+    by = _launches_on("K1", mesh, want=1)
+    seq = sum(raytrace(dev, o, d, tc, k, nb_bounces=bounces, refract_ind=1.0,
+                       **route) for k in range(n))
+    err = float((rgb.cpu() - seq.cpu()).abs().max())
+    print(f"(d) sample-sharded pass over {n} cards (K1 by card {by}), summed "
+          f"on {rgb.device}: max abs difference from the sequential sum on "
+          f"one card {err:.3e}", flush=True)
+    if rgb.device != mesh[0]:
+        raise AssertionError(f"the sample-sharded sum is on {rgb.device}")
+    np.testing.assert_allclose(rgb.cpu().numpy(), seq.cpu().numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+def _trace_shard(kid, dev, o, sd, st, bounces, ior, mesh, route):
+    """Trace kernel kid over the last card's shard of one pass: its
+    recorded launches timed (the card kept ahead), held against the plain
+    version, and the bound of the work their inputs need."""
+    last = mesh[-1]
+    rec = []
+    with kernels.on_device(last):   # events, sleeps and syncs on it
+        s, o = to_device(dev, last), o.to(last)
+        with record_launches(kid, rec):
+            raytrace(s, o, sd[-1], st[-1], 0, nb_bounces=bounces,
+                     refract_ind=ior, **route)
+        ms, work, needed, late = _time_recorded(kid, rec)
+        plain_ms, _, err = _plain_vs_kernel(kid, rec, n=4)
+    ops = sum(_needed_ops(kid, args, int(k[0]), int(k[1]), int(k[2]))
+              for k, (_, args, _) in zip(needed, rec))
+    nbytes = sum(_launch_bytes(kid, args) for _, args, _ in rec)
+    bound_ms, bound_by = bound(nbytes, ops)
+    print(f"{kid} over the shard of {sd[-1].shape[0]} rays on {last}: "
+          f"{ms.mean():.4f} ms a launch over {len(rec)} launches (median of "
+          f"3, {late} late); bound {bound_ms / len(rec):.5f} ms a launch "
+          f"({bound_by}); plain {plain_ms:.3f} ms", flush=True)
+    return dict(ms=float(ms.mean()), plain_ms=plain_ms,
+                bound_ms=bound_ms / len(rec), bound_by=bound_by,
+                max_abs_err=err, shard_rays=sd[-1].shape[0], card=str(last))
+
+
+def phase_mc_trace(device, n, w=200, h=150):
+    """(e) the pallas-trace route (use_megakernel=False) on colonnes (K5)
+    and mesh_demo (K6), w x h, one pass over n cards against one call on
+    all rays on one card under the fused protocol, each card launching the
+    kernel; the kernel over the last card's shard against its plain
+    version."""
+    out = {}
+    for kid, name, light, ior, bounces in (("K5", "colonnes", 0.4, 1.0, 6),
+                                           ("K6", "mesh_demo", 1.2, 1.3, 8)):
+        dev = compile_scene(scenes.build(name, light), device=device)
+        o, d, tc = _rays(device, w, h)
+        route = dict(use_kernels=True, use_megakernel=False, use_fused=False,
+                     cull_chunks=None)
+        want = raytrace(dev, o, d, tc, 0, nb_bounces=bounces,
+                        refract_ind=ior, **route).cpu()
+        mesh = make_mesh(n, device)
+        sd, st, _ = shard_rays(mesh, d, tc)
+        fn = make_sharded_pass(mesh, nb_bounces=bounces, route=route)
+        acc = [torch.zeros_like(x) for x in sd]
+        _reset_counts()
+        secs = _timed_window(lambda: fn(dev, acc, sd, st, o, 0, ior), mesh)
+        by = _launches_on(kid, mesh)
+        got = torch.cat([a.cpu() for a in acc])[: w * h]
+        share, err = fused_match(want, got)
+        print(f"(e) pallas-trace route {name} {w}x{h}x{bounces}, 1 pass over "
+              f"{n} cards: {secs:.4f} s, {kid} by card {by}; "
+              f"{int(round(share * w * h))} of {w * h} pixels more than "
+              f"{FUSED_TOL} off one card, max abs difference {err:.3e}",
+              flush=True)
+        assert_fused_protocol(want, got, f"{name} pallas-trace on {n} cards")
+        res = _trace_shard(kid, dev, o, sd, st, bounces, ior, mesh, route)
+        out[kid] = dict(res, by_card=by,
+                        launches=sum(by.values()), name=name,
+                        size=f"{w}x{h}x{bounces}")
+    return out
+
+
+_CARDS = re.compile(r"process (\d+) of \d+: (cuda:[\d-]+)")
+
+
+def _cards_of(results):
+    """{process: its cards} from the processes' output lines."""
+    out = {}
+    for _, text in results:
+        for pid, cards in _CARDS.findall(text):
+            out[int(pid)] = cards
+    return out
+
+
+def _worker_cmds(nproc, port, ck, out, scene, w, h, bounces, spp, every,
+                 cpu, crash=None):
+    """launcher_worker commands for nproc processes; process `crash`, if
+    given, exits after 2 * every local passes."""
+    return [[sys.executable, "-m",
+             "montecarlo_pathtracing_tpu_torch.testing.launcher_worker",
+             "--process-id", str(k), "--num-processes", str(nproc), "--port",
+             str(port), "--spp", str(spp), "--checkpoint-every", str(every),
+             "--checkpoint", ck, "--out", out, "--scene", scene, "--width",
+             str(w), "--height", str(h), "--bounces", str(bounces),
+             "--tile-rays", str(1 << 17), "--passes-per-call", "8"]
+            + ["--crash-at", str(2 * every)] * (k == crash) + ["--cpu"] * cpu
+            for k in range(nproc)]
+
+
+def _worker_render(nproc, tmp, tag, scene, w, h, bounces, spp, every, cpu):
+    """nproc launcher_worker processes, one card each: (the image, the
+    longest render of a process's block, from its scene on its card to its
+    last pass before the gather, the wall seconds with the processes'
+    starts, each process's device)."""
+    ck, out = os.path.join(tmp, f"{tag}.npz"), os.path.join(tmp, f"{tag}.npy")
+    results, wall, _ = _launch_ranks(_worker_cmds(
+        nproc, _free_port(), ck, out, scene, w, h, bounces, spp, every, cpu),
+        cpu)
+    if any(rc for rc, _ in results):
+        raise AssertionError(f"{nproc} workers failed:\n" + "\n".join(
+            o[-3000:] for _, o in results))
+    times = [json.loads(o.strip().splitlines()[-1]) for _, o in results]
+    render = max(t["t_rendered"] - t["t_ready"] for t in times)
+    return np.load(out), render, wall, [t["device"] for t in times]
+
+
+def _crash_one(nproc, tmp, img, scene, w, h, bounces, spp, every, cpu):
+    """nproc workers, one card each, process 1 crashing after 2 * every of
+    its passes; the others, their blocks checkpointed, are stopped as a
+    job scheduler tears down the group, and nproc new processes resume
+    from the checkpoints: the image against `img` bit for bit."""
+    ck, out = os.path.join(tmp, "crash.npz"), os.path.join(tmp, "crash.npy")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    if cpu:
+        env["OMP_NUM_THREADS"] = "1"
+    per = spp // nproc
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in _worker_cmds(nproc, _free_port(), ck, out, scene, w,
+                                     h, bounces, spp, every, cpu, crash=1)]
+    try:
+        procs[1].communicate(timeout=600)
+        if procs[1].returncode != 3:
+            raise AssertionError(f"the crashing worker exit "
+                                 f"{procs[1].returncode}")
+        deadline = time.perf_counter() + 600
+        for k in range(nproc):
+            if k == 1:
+                continue
+            path = f"{ck[:-4]}.p{k}.npz"
+            while True:
+                try:
+                    with np.load(path) as z:
+                        if int(z["nb_passes"]) == (k + 1) * per:
+                            break
+                except (OSError, ValueError, KeyError, EOFError):
+                    pass
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"worker {k} never checkpointed "
+                                         f"its block")
+                time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.communicate()
+    crash_s = time.perf_counter() - t0
+    with np.load(f"{ck[:-4]}.p1.npz") as z:
+        saved = int(z["nb_passes"])
+    results, resume_s, _ = _launch_ranks(_worker_cmds(
+        nproc, _free_port(), ck, out, scene, w, h, bounces, spp, every, cpu),
+        cpu)
+    if any(rc for rc, _ in results):
+        raise AssertionError("the relaunched workers failed:\n" + "\n".join(
+            o[-3000:] for _, o in results))
+    differ = int((np.load(out) != img).sum())
+    print(f"(g) {nproc} workers, one card each: worker 1 crashed at pass "
+          f"{saved} (its block starts at {per}), the others stopped once "
+          f"their blocks were checkpointed ({crash_s:.3f} s); the relaunch "
+          f"resumed and finished in {resume_s:.3f} s: {differ} channels "
+          f"differ from the uninterrupted render", flush=True)
+    if saved != per + 2 * every or differ:
+        raise AssertionError("one worker's crash and resume did not "
+                             "reproduce the image")
+
+
+def _cli_group(nproc, devices, tmp, tag, size, spp, every, cpu):
+    """`render --distributed` in nproc processes, `devices` cards each: the
+    sum of their checkpointed accumulators, process 0's PNG and each
+    process's cards."""
+    ck, png = os.path.join(tmp, f"{tag}.npz"), os.path.join(tmp, f"{tag}.png")
+    port = _free_port()
+    results, wall, _ = _launch_ranks([
+        [sys.executable, "-m", "montecarlo_pathtracing_tpu_torch", "render",
+         "--distributed", "--coordinator", f"localhost:{port}",
+         "--num-processes", str(nproc), "--process-id", str(k), "--scene",
+         "box_diffuse", *size, "--spp", str(spp), "--checkpoint-every",
+         str(every), "--checkpoint", ck, "--out", png, "--devices",
+         str(devices)] + ["--cpu", "--pallas"] * cpu for k in range(nproc)],
+        cpu)
+    if any(rc for rc, _ in results) or png not in results[0][1]:
+        raise AssertionError(f"{nproc}-process CLI render failed:\n"
+                             + "\n".join(o[-3000:] for _, o in results))
+    acc = 0
+    for k in range(nproc):
+        with np.load(f"{ck[:-4]}.p{k}.npz") as z:
+            acc = acc + z["acc"]
+    return acc, read_png(png), _cards_of(results), wall
+
+
+def phase_mc_processes(device, tmp, n, w=800, h=600, bounces=3, spp=64,
+                       every=4, mesh_spp=8):
+    """(g) processes and the command line: one process per card, 2 and n
+    processes (launcher_worker), on box_diffuse w x h x bounces at spp
+    passes and mesh_demo w x h x 8 at mesh_spp, against one process here
+    (rays/s of the render, and the wall with the processes' starts); the
+    CLI's render --devices n against --devices 0, the same PNG; render
+    --distributed in n processes, one card each, and in 2 processes of 2
+    cards each, against one process within rtol 1e-5, process 0's PNG
+    the gathered image's; one worker's crash and the group's relaunch,
+    resumed bit for bit."""
+    cpu = device == "cpu"
+    size = ["--width", str(w), "--height", str(h), "--bounces", str(bounces)]
+    out = {}
+    for scene, b, s in (("box_diffuse", bounces, spp),
+                        ("mesh_demo", 8, mesh_spp)):
+        cfg = RenderConfig(width=w, height=h, nb_bounces=b,
+                           tile_rays=1 << 17, passes_per_call=8,
+                           device=device)
+        r = Renderer(compile_scene(scenes.build(scene), device=device), cfg)
+        r.advance(cfg.passes_per_call)      # warm-up
+        r.reset()
+        one_s = _timed_window(lambda: r.advance(s), r._mesh)
+        ref = r.image()
+        rays = w * h * s * b
+        rows = {1: (rays / one_s, 1.0, one_s)}
+        for nproc in sorted({2, n}):
+            img, render, wall, devs = _worker_render(
+                nproc, tmp, f"{scene}{nproc}", scene, w, h, b, s, every, cpu)
+            _distinct_cards(device, devs, nproc)
+            np.testing.assert_allclose(img, ref, rtol=1e-5, atol=1e-6)
+            rows[nproc] = (rays / render, rays / render / (nproc * rays
+                                                           / one_s), wall)
+            print(f"(g) {scene} {w}x{h}x{b}, {s} spp in {nproc} processes on "
+                  f"{devs}: {render:.4f} s render ({rays / render:.6g} rays/s,"
+                  f" efficiency {rows[nproc][1]:.4f}), {wall:.3f} s wall with "
+                  f"the starts; one process {one_s:.4f} s ({rays / one_s:.6g} "
+                  f"rays/s); max abs difference {np.abs(img - ref).max():.3e}",
+                  flush=True)
+            if scene == "box_diffuse" and nproc == n:
+                straight = img
+        out[scene] = rows
+    _crash_one(n, tmp, straight, "box_diffuse", w, h, bounces, spp, every,
+               cpu)
+
+    # the CLI: --devices n against --devices 0 in this process
+    pngs = []
+    for devices in (0, n):
+        path = os.path.join(tmp, f"devices{devices}.png")
+        rc, lines = _cli(["render", "--scene", "box_diffuse", *size, "--spp",
+                          str(spp // 4), "--devices", str(devices), "--out",
+                          path] + ["--cpu", "--pallas"] * cpu)
+        if rc != 0 or path not in lines:
+            raise AssertionError(f"render --devices {devices} failed")
+        pngs.append(read_png(path))
+    differ = int((pngs[0] != pngs[1]).sum())
+    print(f"(g) render --devices {n} against --devices 0, box_diffuse "
+          f"{w}x{h}x{bounces}, {spp // 4} spp: {differ} PNG channels differ",
+          flush=True)
+    if differ:
+        raise AssertionError(f"render --devices {n} wrote another PNG")
+
+    # render --distributed: n processes of one card, 2 of 2 cards
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       light_intensity=1.2, device=device)
+    r = Renderer(compile_scene(scenes.build("box_diffuse", 1.2),
+                               device=device), cfg)
+    ref = r.run(spp)
+    # 2 processes of n/2 cards each need n cards (one card: shards that
+    # share it come from an explicit mesh, which the CLI does not take)
+    groups = [(n, 0)] + [(2, n // 2)] * (n >= 4 and (
+        cpu or torch.cuda.device_count() >= n))
+    for nproc, devices in groups:
+        acc, png, cards, wall = _cli_group(nproc, devices, tmp,
+                                           f"cli{nproc}x{devices}", size, spp,
+                                           every, cpu)
+        img = r.resolve(acc, passes=spp)
+        want_png = tonemap(img)[::-1] / np.float32(255.0)
+        png_differ = int((png != want_png).sum())
+        print(f"(g) render --distributed in {nproc} processes x "
+              f"{max(1, devices)} card{'s' * (devices > 1)} on {cards}: "
+              f"{wall:.3f} s wall; max abs difference from one process "
+              f"{np.abs(img - ref).max():.3e}; process 0's PNG: {png_differ} "
+              f"channels differ from the checkpoints' sum", flush=True)
+        np.testing.assert_allclose(img, ref, rtol=1e-5, atol=1e-6)
+        if png_differ:
+            raise AssertionError("process 0's PNG is not the gathered image")
+        if not cpu and torch.cuda.device_count() >= nproc * max(1, devices):
+            want = {k: (f"cuda:{k}" if devices <= 1 else
+                        f"cuda:{k * devices}-{k * devices + devices - 1}")
+                    for k in range(nproc)}
+            if cards != want:
+                raise AssertionError(f"processes on {cards}, want {want}")
+    return out
+
+
+def _mc_line(kid, name, res):
+    """A kernels-line entry of phase 17: the kernel on the last card's
+    shard, with its launches in the phase's window, by card."""
+    source, replaces = {"K1": (K1_SOURCE, K1_REPLACES),
+                        "K2": (K2_SOURCE, K2_REPLACES)}.get(
+        kid) or (TRACE_SOURCE, TRACE_KERNELS[kid][1])
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": res["launches"],
+            "launches_by_card": res["by_card"],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None}
+
+
+def run_multicard(name_power):
+    """Phase 17 (multi-card rendering), where the host has 2 cards or
+    more: its kernels-line entries ([] where it did not run)."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"phase 17 (multi-card rendering) not run: this host has {n} "
+              f"card{'s' * (n != 1)}, it needs 2 or more", flush=True)
+        return []
+    t0 = time.perf_counter()
+    counts = sorted({2, n})
+    _reset_counts()
+    dryrun_multichip(n)
+    print(f"(f) dryrun_multichip({n}) over {n} cards: K1 by card "
+          f"{_launches_on('K1', make_mesh(n))}, K2 by card "
+          f"{_launches_on('K2', make_mesh(n))}", flush=True)
+    audit = audit_routes("cuda", make_mesh(n))
+    a = phase_mc_box("cuda", counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        b = phase_mc_config5("cuda", counts, tmp)
+    c = phase_mc_mesh("cuda", counts)
+    phase_mc_sample("cuda", n)
+    e = phase_mc_trace("cuda", n)
+    with tempfile.TemporaryDirectory() as tmp:
+        g = phase_mc_processes("cuda", tmp, n)
+    print(f"[{name_power}] phase 17 over {n} cards: rays/s at "
+          + "; ".join(f"{what} " + ", ".join(
+              f"{k}: {v[0]:.6g} ({v[1]:.4f})" for k, v in sorted(sc.items()))
+              for what, sc in (("(a) in one process", a["scale"]),
+                               ("(b) in one process", b["scale"]),
+                               ("(b) a process per card", b["pscale"]),
+                               ("(c) in one process", c["scale"]),
+                               ("(a) a process per card", g["box_diffuse"]),
+                               ("(c) a process per card", g["mesh_demo"])))
+          + f" (cards: rays/s (efficiency)); host syncs of a sharded pass: "
+          + ", ".join(f"{k} {sum(v.values())}" for k, v in audit.items())
+          + f"; phase 17 {time.perf_counter() - t0:.1f} s", flush=True)
+    return [_mc_line("K1", f"K1 mega_kernel, box_diffuse 800x600x3 on {n} "
+                           f"cards, the {a['shard_rays']}-ray shard on "
+                           f"{a['card']}", a),
+            _mc_line("K2", f"K2 fused_kernel, mesh_demo 800x600x8 on {n} "
+                           f"cards, the {c['shard_rays']}-ray shard on "
+                           f"{c['card']} (its {c['shard_launches']} "
+                           f"launches)", c)] + [
+        _mc_line(kid, f"{TRACE_KERNELS[kid][0]}, pallas-trace route "
+                      f"{e[kid]['name']} {e[kid]['size']} on {n} cards, the "
+                      f"{e[kid]['shard_rays']}-ray shard on {e[kid]['card']}",
+                 e[kid]) for kid in ("K5", "K6")]
+
+
 def _aos_line(kid, res):
     line = _trace_line(kid, res)
     line["name"] += f", montecarlo_aos {res['name']} {res['size']}"
@@ -3519,14 +4466,16 @@ def main(argv=()) -> int:
     kernels built alone), `--only dense` (phases 1 and 13, K1 and the
     trace kernels built), `--only diff` (phases 1 and 14, the trace
     kernels built alone), `--only tools` (phases 1 and 15, K1 and K2
-    built) or `--only multi` (phases 1 and 16, K1 and K2 built) run one
-    part, for a quick look."""
+    built), `--only multi` (phases 1 and 16, K1 and K2 built) or `--only
+    multicard` (phases 1 and 17, K1, K2 and the trace kernels built, on
+    a host of 2 cards or more; its kernels line too) run one part, for a
+    quick look."""
     only = None
+    parts = ("k1", "trace", "dense", "diff", "tools", "multi", "multicard")
     if argv:
-        if len(argv) != 2 or argv[0] != "--only" or argv[1] not in (
-                "k1", "trace", "dense", "diff", "tools", "multi"):
-            print("usage: chip_smoke.py "
-                  "[--only k1|trace|dense|diff|tools|multi]", file=sys.stderr)
+        if len(argv) != 2 or argv[0] != "--only" or argv[1] not in parts:
+            print(f"usage: chip_smoke.py [--only {'|'.join(parts)}]",
+                  file=sys.stderr)
             return 2
         only = argv[1]
     if not torch.cuda.is_available():
@@ -3552,6 +4501,10 @@ def main(argv=()) -> int:
     elif only == "multi":
         phase_builds(["megakernel", "bounce_kernel"])
         run_multi(name_power)
+    elif only == "multicard":
+        if torch.cuda.device_count() >= 2:
+            phase_builds(["megakernel", "bounce_kernel", "trace_kernels"])
+        print(json.dumps({"kernels": run_multicard(name_power)}))
     if only:
         print(name_power)
         print(json.dumps({"ok": True, "device": {
@@ -3620,6 +4573,7 @@ def main(argv=()) -> int:
     grads = run_diff(name_power)
     run_tools(name_power)
     multi_k1, multi_k2 = run_multi(name_power)
+    multicard = run_multicard(name_power)
 
     print(json.dumps({"kernels": [
         {"name": "K1 mega_kernel", "route": "cuda", "source": K1_SOURCE,
@@ -3662,7 +4616,8 @@ def main(argv=()) -> int:
             "max_abs_err": multi_k2["max_abs_err"], "ms": multi_k2["ms"],
             "plain_ms": multi_k2["plain_ms"],
             "bound_ms": multi_k2["bound_ms"],
-            "bound_by": multi_k2["bound_by"], "library_ms": None}]}))
+            "bound_by": multi_k2["bound_by"], "library_ms": None}]
+        + multicard}))
     print(name_power)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

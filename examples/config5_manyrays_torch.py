@@ -11,11 +11,14 @@ so the resumed half continues the same sample sequence.
 
 With --processes N the same render runs through
 parallel.launcher.run_multihost_render in N processes (gloo on
-localhost; on one card they share it): each renders its block of passes
-up to its first half and stops after checkpointing, then N new
-processes resume from their checkpoints and finish, and process 0
-gathers the image. Within one process, Renderer(shard_devices=N) splits
-the rays instead (tests/test_torch_sharding.py).
+localhost), process k on card k (on a host of fewer cards they share
+them): each renders its block of passes up to its first half and stops
+after checkpointing, then N new processes resume from their checkpoints
+and finish, and process 0 gathers the image; --straight renders the
+blocks without the stop. Each process prints its card and times as a
+JSON line, and manyrays.json lists them. Within one process,
+Renderer(shard_devices=N) splits the rays instead
+(tests/test_torch_sharding.py).
 
 On the card the render takes the kernels (use_kernels=True); --cpu
 renders on the CPU on the dense route, as the JAX script renders off the
@@ -23,7 +26,7 @@ TPU. Writes manyrays.png and manyrays.json (wall clock, spp/s, rays/s,
 the resume proof) to --out (default artifacts/examples_torch/).
 
     python examples/config5_manyrays_torch.py [--spp 1024] [--quick]
-        [--cpu] [--processes N]
+        [--cpu] [--processes N [--straight]]
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ def _args(argv):
     ap.add_argument("--processes", type=int, default=1,
                     help="render through run_multihost_render in this "
                          "many processes")
+    ap.add_argument("--straight", action="store_true",
+                    help="with --processes: no stop and resume at half")
     ap.add_argument("--out", default=os.path.join(
         HERE, "..", "artifacts", "examples_torch"))
     # one process of a --processes run (set by the parent)
@@ -71,14 +76,12 @@ def _args(argv):
     return args
 
 
-def _make(args):
-    """make(): a fresh renderer of the run's configuration."""
+def _config(args):
+    """(scene, RenderConfig, proj, view) of the run."""
     from montecarlo_pathtracing_tpu_torch.render.camera import (
         default_rt_camera)
-    from montecarlo_pathtracing_tpu_torch.render.renderer import (
-        RenderConfig, Renderer)
+    from montecarlo_pathtracing_tpu_torch.render.renderer import RenderConfig
     from montecarlo_pathtracing_tpu_torch.scene import scenes
-    from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
 
     device = "cpu" if args.cpu else "cuda"
     cfg = RenderConfig(width=args.width, height=args.height,
@@ -89,9 +92,19 @@ def _make(args):
     # the gallery's colonnade pose (examples/render_gallery.py POSES)
     proj, view = default_rt_camera(cfg.render_width, cfg.render_height,
                                    yaw=10.0, pitch=-5.0, zoom=0.6)
+    return scene, cfg, proj, view
+
+
+def _make(args):
+    """make(): a fresh renderer of the run's configuration."""
+    from montecarlo_pathtracing_tpu_torch.render.renderer import Renderer
+    from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
+
+    scene, cfg, proj, view = _config(args)
 
     def make():
-        return Renderer(compile_scene(scene, device=device), cfg, proj, view)
+        return Renderer(compile_scene(scene, device=cfg.device), cfg, proj,
+                        view)
 
     return make
 
@@ -170,6 +183,16 @@ def rank_process(args):
     init_distributed(f"localhost:{args.port}", args.processes,
                      args.process_id)
     r = _make(args)()
+    t_ready = time.time()
+    t_rendered = [t_ready]
+    untimed = r.run
+
+    def timed_run(target):
+        img = untimed(target)
+        t_rendered[0] = time.time()
+        return img
+
+    r.run = timed_run
     first = args.process_id * args.spp // args.processes
     end = (args.process_id + 1) * args.spp // args.processes
     half = max(1, (end - first) // 2)
@@ -182,15 +205,20 @@ def rank_process(args):
             return run(target)
 
         r.run = stopping_run
+    img = None
     try:
         img = run_multihost_render(
             r, args.spp, checkpoint=os.path.join(args.out,
                                                  "manyrays_state.npz"),
             checkpoint_every=half)
     except _Stopped:
-        return
-    if args.process_id == 0:
+        pass
+    if img is not None and args.process_id == 0:
         np.save(os.path.join(args.out, "manyrays_image.npy"), img)
+    print(json.dumps({"process": args.process_id,
+                      "device": str(r.scene.device), "passes": r.nb_passes,
+                      "t_ready": t_ready, "t_rendered": t_rendered[0],
+                      "t_done": time.time()}), flush=True)
 
 
 def _free_port():
@@ -200,7 +228,8 @@ def _free_port():
 
 
 def _launch(args, argv, stop):
-    """Start the run's processes, wait for all, raise if any failed."""
+    """Start the run's processes, wait for all, raise if any failed.
+    Returns each process's JSON line, in process order."""
     port = _free_port()
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, ".."))
     if args.cpu:
@@ -211,13 +240,15 @@ def _launch(args, argv, stop):
         + ["--stop-at-half"] * stop, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for k in range(args.processes)]
-    failed = []
+    failed, lines = [], []
     try:
         for k, p in enumerate(procs):
             out, _ = p.communicate(timeout=PROCESS_TIMEOUT_S)
             if p.returncode != 0:
                 failed.append(f"process {k} exit {p.returncode}:\n"
                               f"{out[-3000:]}")
+            else:
+                lines.append(json.loads(out.strip().splitlines()[-1]))
     finally:
         for p in procs:
             if p.poll() is None:
@@ -225,11 +256,13 @@ def _launch(args, argv, stop):
                 p.communicate()
     if failed:
         raise RuntimeError("\n".join(failed))
+    return lines
 
 
 def multi_process(args, argv):
     """--processes N: every process renders its block's first half and
-    stops after checkpointing; N new processes resume and finish."""
+    stops after checkpointing; N new processes resume and finish (with
+    --straight, N processes render their blocks whole)."""
     import glob
 
     import numpy as np
@@ -240,17 +273,25 @@ def multi_process(args, argv):
     for path in glob.glob(os.path.join(args.out, "manyrays_state.p*.npz")):
         os.remove(path)
     t0 = time.perf_counter()
-    _launch(args, argv, stop=True)
-    t_half = time.perf_counter() - t0
     paths = [process_checkpoint_path(ckpt, k) for k in range(args.processes)]
-    resumed_at = [int(np.load(p)["nb_passes"]) for p in paths]
+    resumed_at = None
+    if not args.straight:
+        _launch(args, argv, stop=True)
+        resumed_at = [int(np.load(p)["nb_passes"]) for p in paths]
+    t_half = time.perf_counter() - t0
     t1 = time.perf_counter()
-    _launch(args, argv, stop=False)
+    lines = _launch(args, argv, stop=False)
     t_second = time.perf_counter() - t1
     total = time.perf_counter() - t0
     img = np.load(os.path.join(args.out, "manyrays_image.npy"))
-    _write(args, img, _stats(args, img, total, t_half, t_second, resumed_at,
-                             sum(os.path.getsize(p) for p in paths)))
+    stats = _stats(args, img, total, t_half, t_second, resumed_at,
+                   sum(os.path.getsize(p) for p in paths))
+    # each process's card, and the longest render of a block, from the
+    # process's scene on its card to its last pass (its start left out)
+    stats["devices"] = [line["device"] for line in lines]
+    stats["render_s"] = max(line["t_rendered"] - line["t_ready"]
+                            for line in lines)
+    _write(args, img, stats)
 
 
 def main(argv=None):

@@ -60,7 +60,8 @@ def _add_render_args(p):
                    help="run on the CPU instead of the GPU")
     p.add_argument("--devices", type=int, default=0,
                    help="split each ray tile over this many devices "
-                        "(0 = one; cards, or virtual shards with --cpu)")
+                        "(0 = one; cards, or virtual shards with --cpu; "
+                        "with --distributed, each process's own cards)")
 
 
 def _sync(device):
@@ -130,7 +131,8 @@ def main(argv=None):
         # before anything touches the card: the process takes its card here
         from .parallel.launcher import init_distributed
         init_distributed(args.coordinator, args.num_processes,
-                         args.process_id)
+                         args.process_id,
+                         devices_per_process=max(1, args.devices))
 
     from .scene import scenes
     from .scene.device import compile_scene

@@ -102,6 +102,7 @@ constexpr int TRI_ROWS = 18;   // triangle chunk rows: corners a b c, normals
 constexpr int ANA_ROWS = 32;   // prim chunk rows: inverse, forward, material,
                                // rgba, ok flag
 constexpr float INF = 3e38f;
+constexpr int MAX_DEVICES = 64;  // devices whose resident block count is cached
 constexpr int NONE = 0x7fffffff;  // no candidate in a lane's share of a chunk
 // lanes per ray when a launch has MANY_RAYS or more rays to scan, and when
 // it has fewer: the threshold is set from each shape's time per launch
@@ -571,13 +572,18 @@ __global__ void __launch_bounds__(BLOCK) fused_kernel(Params p) {
 template <bool TRANSPARENT, bool FLAT, bool CULL>
 void launch(const Params& p, cudaStream_t stream) {
   auto kernel = fused_kernel<TRANSPARENT, FLAT, CULL>;
-  static int resident = 0;  // the same for every launch of this variant
+  // the same for every launch of this variant on a device: cached per
+  // device (the cards of a host may differ)
+  static int resident_of[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int resident = dev < MAX_DEVICES ? resident_of[dev] : 0;
   if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
+    int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
     resident = sms * (per_sm > 0 ? per_sm : 1);
+    if (dev < MAX_DEVICES) resident_of[dev] = resident;
   }
   const int need = (p.M * LANES_FEW + BLOCK - 1) / BLOCK;
   kernel<<<need < resident ? need : resident, BLOCK, 0, stream>>>(p);

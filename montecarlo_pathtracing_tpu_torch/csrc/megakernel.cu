@@ -82,6 +82,7 @@ constexpr int MIN_BLOCKS = 6;   // resident blocks an SM must fit (80 registers)
 constexpr int TILE = 4096;        // rays per row of the super visit order
 constexpr int SMEM_MAX = 232448;  // bytes of shared memory a block may use
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;   // devices whose SM count is cached
 
 // the next ray of the launch that no lane has taken
 __device__ unsigned int next_ray;
@@ -467,13 +468,17 @@ extern "C" int mega_pass(const void* dirs, const void* tc, const void* fpar, uns
   const void* fn = mega_variant(has_transparent, cull, P, p.table.S, smem, per_sm, err);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
+  // the current device's SM count, cached per device (the cards of a host
+  // may differ)
+  static int sms_of[MAX_DEVICES] = {};
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev < MAX_DEVICES) sms = sms_of[dev];
+  if (err == cudaSuccess && sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess && dev < MAX_DEVICES) sms_of[dev] = sms;
   }
+  if (err != cudaSuccess) return static_cast<int>(err);
   // as many blocks as are resident at once, and no more than the rays need
   const int grid = std::min(per_sm * sms, (n + BLOCK - 1) / BLOCK);
   void* counter = nullptr;

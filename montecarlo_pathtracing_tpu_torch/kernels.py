@@ -87,11 +87,29 @@ def on_device(device):
     but the host code reads the current device: K1 takes its SM count,
     sets its dynamic shared-memory attribute and finds its `next_ray`
     counter there, K2 its resident block count. The SM and resident
-    counts are cached on the first launch (`static`), which holds on a
-    host of identical cards."""
+    counts are cached per card on its first launch there."""
     if torch.device(device).type == "cuda":
         return torch.cuda.device(device)
     return contextlib.nullcontext()
+
+
+def count_launch(wrapper, device) -> None:
+    """Count one launch of `wrapper`'s kernel, in `wrapper.launches` and
+    by card in `wrapper.launches_on[str(device)]`."""
+    wrapper.launches += 1
+    wrapper.launches_on[str(device)] += 1
+
+
+def host_tensor(data, dtype, device) -> torch.Tensor:
+    """`data` (a list or array on the host) as a tensor on `device`,
+    without waiting for the card: torch.tensor(data, device=card) copies
+    through a synchronous cudaMemcpy, which waits for everything queued
+    on the card's stream. Here the copy leaves from pinned memory and is
+    queued on the card's current stream."""
+    t = torch.as_tensor(data, dtype=dtype)
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def build_all(names, variants=()) -> dict:

@@ -42,6 +42,7 @@ launches nothing and returns black, as the wavefront mode does.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -210,7 +211,7 @@ def _mesh_tables(scene):
         sstart += nkc // TRI_SUPER
     meshes = tuple(tuple(int(x) for x in msi[0:3, i])
                    for i in range(msi.shape[1]))
-    return (msc, torch.as_tensor(msi, device=dev), meshes,
+    return (msc, kernels.host_tensor(msi, torch.int32, dev), meshes,
             torch.cat(scene.mesh_chunk_bb, dim=1),
             torch.cat(scene.mesh_super_bb, dim=1))
 
@@ -314,8 +315,8 @@ def fused_inputs(scene, refract_ind) -> FusedInputs:
     return FusedInputs(
         tab=_small_table(scene),
         gsbb=_small_super_boxes(scene) if csm else z6,
-        group_desc=torch.tensor(groups, dtype=torch.int32,
-                                device=dev).reshape(-1, 4),
+        group_desc=kernels.host_tensor(groups, torch.int32,
+                                       dev).reshape(-1, 4),
         groups=groups,
         msc=msc, msi=msi, meshes=meshes, cbb=cbb, sbb=sbb,
         tpool=(scene.tri_chunks if meshes else
@@ -325,8 +326,8 @@ def fused_inputs(scene, refract_ind) -> FusedInputs:
         apool=(scene.ana_chunks if has_ana else
                torch.zeros((1, 32, LANES), dtype=_F32, device=dev)),
         agr=_ana_tables(scene),
-        ana_desc=torch.tensor(scene.ana_groups, dtype=torch.int32,
-                              device=dev).reshape(-1, 4),
+        ana_desc=kernels.host_tensor(scene.ana_groups, torch.int32,
+                                     dev).reshape(-1, 4),
         ana_groups=tuple(scene.ana_groups),
         ordr=None, entr=None,
         ior=float(np.float32(refract_ind)),
@@ -760,10 +761,11 @@ def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None,
     if err != 0:
         raise RuntimeError(
             f"K2 launch failed: {lib.fused_error_string(err).decode()}")
-    k2_launch.launches += 1
+    kernels.count_launch(k2_launch, stf.device)
 
 
 k2_launch.launches = 0
+k2_launch.launches_on = collections.Counter()
 
 
 def fused_call(inp: FusedInputs, stf, sti, whole_path: int):
@@ -816,8 +818,8 @@ def raytrace_fused(scene, O, D, screen_tc, pass_index: int, *,
     else:
         sort_lo = scene.prim_bb_min.amin(dim=0)
         sort_hi = scene.prim_bb_max.amax(dim=0)
-        park = torch.tensor([0.0, 0.0, PARK_Z, 0.0, 0.0, 1.0], dtype=_F32,
-                            device=dev)[:, None]
+        park = kernels.host_tensor([0.0, 0.0, PARK_Z, 0.0, 0.0, 1.0], _F32,
+                                   dev)[:, None]
         for i in range(nb_bounces):
             done = sti[0] != 0
             # park finished lanes outside every box, pointing away

@@ -41,6 +41,7 @@ fold, so the winners are the brute fold's (up to exact distance ties).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import NamedTuple, Optional, Tuple
 
@@ -600,11 +601,12 @@ def k1_launch(inp: MegaInputs, seed: int, nb_bounces: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(
             f"K1 launch failed: {lib.mega_error_string(err).decode()}")
-    k1_launch.launches += 1
+    kernels.count_launch(k1_launch, out.device)
     return out
 
 
 k1_launch.launches = 0
+k1_launch.launches_on = collections.Counter()
 
 
 def k1_kernel_info(inp: MegaInputs) -> dict:
@@ -737,7 +739,9 @@ def mega_inputs(scene, O, D, screen_tc, refract_ind) -> MegaInputs:
     d = D / torch.linalg.vector_norm(D, dim=-1, keepdim=True)
     tc = screen_tc.to(torch.float32)
     if np_ != n:
-        d = torch.cat([d, d.new_tensor([0.0, 0.0, 1.0]).expand(np_ - n, 3)])
+        pad = d.new_zeros((np_ - n, 3))
+        pad[:, 2].fill_(1.0)
+        d = torch.cat([d, pad])
         tc = torch.cat([tc, tc.new_zeros((np_ - n, 2))])
     d = d.contiguous()
     tc = tc.contiguous()
@@ -752,7 +756,7 @@ def mega_inputs(scene, O, D, screen_tc, refract_ind) -> MegaInputs:
         ordr = _mega_super_order(d.T, o3, sbb, groups)
     return MegaInputs(
         dirs=d, tc=tc, fpar=fpar, tab=_mega_table(scene), sbb=sbb, ordr=ordr,
-        group_desc=torch.tensor(groups, dtype=torch.int32, device=dev),
+        group_desc=kernels.host_tensor(groups, torch.int32, dev),
         groups=groups, n=n, has_transparent=bool(scene.has_transparent),
         cull=cull)
 

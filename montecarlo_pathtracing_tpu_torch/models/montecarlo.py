@@ -82,7 +82,12 @@ def random_path_soa(scene, o, d, state, *, nb_bounces: int, refract_ind,
     z = torch.zeros((n,), dtype=torch.float32, device=dev)
     one = torch.ones((n,), dtype=torch.float32, device=dev)
     unit_z = (z, z, one)
-    ior = torch.as_tensor(refract_ind, dtype=torch.float32, device=dev)
+    # a number is filled in on the device (torch.as_tensor of a number
+    # copies it through a synchronous cudaMemcpy); a tensor, the IOR leaf
+    # of render/diff.py, keeps its graph
+    ior = (torch.as_tensor(refract_ind, dtype=torch.float32, device=dev)
+           if isinstance(refract_ind, torch.Tensor) else
+           torch.full((), refract_ind, dtype=torch.float32, device=dev))
     if sort_rays:
         sort_lo = scene.prim_bb_min.amin(dim=0)
         sort_hi = scene.prim_bb_max.amax(dim=0)

@@ -41,6 +41,8 @@ tensors and its kernel on CUDA tensors, counting launches in
 """
 from __future__ import annotations
 
+import collections
+
 import numpy as np
 import torch
 
@@ -226,11 +228,12 @@ def an_fold(o, d, tab, order, tlo_sorted, bound, shape_code, sup_bb,
             dircode.data_ptr(), counts, int(per_ray),
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K5", lib, err)
-    group_best_rows_sparse.launches += 1
+    kernels.count_launch(group_best_rows_sparse, dev)
     return dist, row, a, dircode
 
 
 group_best_rows_sparse.launches = 0
+group_best_rows_sparse.launches_on = collections.Counter()
 
 
 # --------------------------------------------------------------------------
@@ -321,8 +324,9 @@ def mesh_fold(o, d, tri, order, tlo_sorted, bound, work=None):
             a.data_ptr(), row.data_ptr(), counts,
             torch.cuda.current_stream(dev).cuda_stream)
     raise_on_error("K6", lib, err)
-    mesh_best_rows_sparse.launches += 1
+    kernels.count_launch(mesh_best_rows_sparse, dev)
     return a, row
 
 
 mesh_best_rows_sparse.launches = 0
+mesh_best_rows_sparse.launches_on = collections.Counter()

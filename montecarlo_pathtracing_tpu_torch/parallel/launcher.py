@@ -36,9 +36,31 @@ import torch.distributed as dist
 TIMEOUT_S = 120
 
 
+def _local_rank(rank: int) -> int:
+    """A process's rank on its host: LOCAL_RANK (torchrun's), else its
+    rank."""
+    return int(os.environ.get("LOCAL_RANK", rank))
+
+
+def first_card(n: int, local: int | None = None) -> int:
+    """The first of the n cards of a process's mesh. Outside a process
+    group of several processes: 0. In one, for the process of local rank
+    r (`local`, by default this process's): r * n, so that each process
+    has cards of its own; with n = 1, r modulo the host's card count, so
+    that processes share the cards of a host that has fewer."""
+    if local is None:
+        if not dist.is_initialized() or dist.get_world_size() < 2:
+            return 0
+        local = _local_rank(dist.get_rank())
+    if n == 1:
+        return local % max(1, torch.cuda.device_count())
+    return local * n
+
+
 def init_distributed(coordinator: str | None = None,
                      num_processes: int | None = None,
-                     process_id: int | None = None) -> int:
+                     process_id: int | None = None,
+                     devices_per_process: int = 1) -> int:
     """Join the process group (gloo, `tcp://<coordinator>`). Returns this
     process's rank.
 
@@ -46,9 +68,11 @@ def init_distributed(coordinator: str | None = None,
     place of JAX's: MASTER_ADDR:MASTER_PORT for JAX_COORDINATOR_ADDRESS,
     WORLD_SIZE for JAX_NUM_PROCESSES, RANK for JAX_PROCESS_ID. Does
     nothing when the group is already initialized or when there is one
-    process. Where there is a card, the process takes card LOCAL_RANK
-    (default: its rank) modulo the card count as its current device and
-    prints it: on a one-card host every process shares cuda:0."""
+    process. Where there is a card, the process takes the first card of
+    its mesh of `devices_per_process` cards (`first_card`: its local rank
+    times that count, or with one card each its local rank modulo the
+    card count) as its current device and prints its cards; it raises
+    when the host has too few."""
     if coordinator is None and "MASTER_ADDR" in os.environ:
         coordinator = (f"{os.environ['MASTER_ADDR']}:"
                        f"{os.environ.get('MASTER_PORT', '29500')}")
@@ -64,10 +88,16 @@ def init_distributed(coordinator: str | None = None,
         raise ValueError("a distributed render needs the coordinator's "
                          "host:port (--coordinator or MASTER_ADDR)")
     if torch.cuda.is_available():
-        local = int(os.environ.get("LOCAL_RANK", process_id))
-        card = local % torch.cuda.device_count()
+        n = max(1, devices_per_process)
+        card = first_card(n, _local_rank(process_id))
+        count = torch.cuda.device_count()
+        if card + n > count:
+            raise RuntimeError(f"process {process_id} takes cards "
+                               f"cuda:{card}-{card + n - 1}; this host has "
+                               f"{count}")
         torch.cuda.set_device(card)
-        print(f"process {process_id} of {num_processes}: cuda:{card} "
+        cards = f"cuda:{card}" + (f"-{card + n - 1}" if n > 1 else "")
+        print(f"process {process_id} of {num_processes}: {cards} "
               f"({torch.cuda.get_device_name(card)})", file=sys.stderr,
               flush=True)
     dist.init_process_group(

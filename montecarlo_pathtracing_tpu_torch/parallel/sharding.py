@@ -5,10 +5,17 @@ Port of montecarlo_pathtracing_tpu/parallel/sharding.py. JAX lays a
 `Mesh` over its devices and has GSPMD or `shard_map` run one program on
 every shard; here a mesh is a list of torch devices and a host loop makes
 one integrator call per shard, on that shard's device, against a replica
-of the scene there. Calls on distinct cards overlap, each queued on its
-own card's current stream. Shards that share a card run one after another
-on that card's current stream, never on two streams at once: K1 keeps one
-work counter per device (csrc/megakernel.cu `next_ray`).
+of the scene and the camera origin there. Nothing in a call waits for
+its card (no host sync, no copy from another card), so the loop queues
+each card's work and goes on to the next card's call while the cards
+run. Each card's work still starts only once the host has queued it:
+the host's per-call work (K1's inputs, K2's schedules, the wavefront's
+torch ops) runs shard after shard on the one thread, and on the
+host-bound routes a pass over N cards takes about N times the host time
+of a pass over one (PERF.md, "Four cards"). Shards that share a card run one
+after another on that card's current stream, never on two streams at
+once: K1 keeps one work counter per device (csrc/megakernel.cu
+`next_ray`).
 
   1. PIXEL/RAY SHARDING (primary): the flattened ray batch is split into
      contiguous shards, one per device. No communication per pass: the
@@ -29,7 +36,8 @@ import inspect
 import torch
 
 from ..models.registry import get_integrator
-from ..scene.device import to_device
+from ..scene.device import DeviceScene, to_device
+from .launcher import first_card
 
 
 def make_mesh(n_devices: int | None = None, device="cuda",
@@ -37,11 +45,15 @@ def make_mesh(n_devices: int | None = None, device="cuda",
     """The devices of a mesh, one per shard.
 
     `devices`, an explicit list, is taken as given: two shards may then
-    share one card. Otherwise `device` names the kind. "cuda" gives
-    cuda:0 .. cuda:n-1 (n defaults to every card) and raises when the host
-    has fewer cards than asked: it never puts two shards on one card
-    unasked. "cpu" gives n virtual shards on the CPU (n defaults to 1),
-    the counterpart of the JAX tests' virtual CPU devices."""
+    share one card. Otherwise `device` names the kind. "cuda" gives n
+    cards (n defaults to every card) and raises when the host has too
+    few: it never puts two shards on one card unasked. Alone, a process
+    takes cuda:0 .. cuda:n-1; in a process group of several processes
+    (parallel/launcher.init_distributed), the process of local rank r
+    takes its own cards, cuda:r*n .. cuda:r*n+n-1, the first of which
+    init_distributed made its current device. "cpu" gives n virtual
+    shards on the CPU (n defaults to 1), the counterpart of the JAX
+    tests' virtual CPU devices."""
     if devices is not None:
         mesh = [torch.device(d) for d in devices]
         if not mesh or n_devices not in (None, len(mesh)):
@@ -52,10 +64,12 @@ def make_mesh(n_devices: int | None = None, device="cuda",
     if kind == "cuda":
         count = torch.cuda.device_count()
         n = count if n_devices is None else n_devices
-        if not 1 <= n <= count:
-            raise RuntimeError(f"a mesh of {n} CUDA devices was asked for; "
-                               f"this host has {count}")
-        return [torch.device("cuda", k) for k in range(n)]
+        first = first_card(n)
+        if n < 1 or first + n > count:
+            where = "" if first == 0 else f" from cuda:{first}"
+            raise RuntimeError(f"a mesh of {n} CUDA devices{where} was asked "
+                               f"for; this host has {count}")
+        return [torch.device("cuda", first + k) for k in range(n)]
     if kind == "cpu":
         n = 1 if n_devices is None else n_devices
         if n < 1:
@@ -92,16 +106,21 @@ def route_keywords(integrator, route: dict | None) -> dict:
 
 
 def _replicator(mesh: list):
-    """scene -> its replica on each shard's device: one copy per distinct
-    device, kept while the same scene is passed."""
+    """(scene, tensors...) -> for each shard, their replicas on its device:
+    one copy per distinct device, kept while the same objects are passed.
+    The copies are made before a call queues any work: a copy from
+    another card runs on that card's stream, behind its queued work."""
     held = {}
 
-    def replicas(scene):
-        if held.get("scene") is not scene:
-            held["scene"] = scene
-            held["by_device"] = {d: to_device(scene, d)
-                                 for d in dict.fromkeys(mesh)}
-        return [held["by_device"][d] for d in mesh]
+    def put(obj, dev):
+        return to_device(obj, dev) if isinstance(obj, DeviceScene) \
+            else obj.to(dev)
+
+    def replicas(*objs):
+        for k, obj in enumerate(objs):
+            if k not in held or held[k][0] is not obj:
+                held[k] = (obj, {d: put(obj, d) for d in dict.fromkeys(mesh)})
+        return [tuple(held[k][1][d] for k in range(len(objs))) for d in mesh]
 
     return replicas
 
@@ -127,11 +146,10 @@ def make_sharded_pass(mesh: list, integrator_name: str = "montecarlo", *,
         if not len(acc) == len(dirs) == len(tc) == len(mesh):
             raise ValueError(f"{len(mesh)} shards, given {len(acc)} "
                              f"accumulators, {len(dirs)} and {len(tc)} rays")
-        for dev, s, a, d, t in zip(mesh, replicas(scene), acc, dirs, tc):
-            a.add_(integrator(s, origin.to(dev), d, t, pass_index,
-                              nb_bounces=nb_bounces, refract_ind=refract_ind,
-                              date=date, detach_sampling=detach_sampling,
-                              **kw))
+        for (s, o), a, d, t in zip(replicas(scene, origin), acc, dirs, tc):
+            a.add_(integrator(s, o, d, t, pass_index, nb_bounces=nb_bounces,
+                              refract_ind=refract_ind, date=date,
+                              detach_sampling=detach_sampling, **kw))
         return acc
 
     return one_pass
@@ -151,14 +169,16 @@ def make_sample_sharded_pass(mesh: list, integrator_name: str = "montecarlo",
     replicas = _replicator(mesh)
 
     def sample_pass(scene, dirs, tc, origin, base_pass, refract_ind):
-        total = None
-        for k, (dev, s) in enumerate(zip(mesh, replicas(scene))):
-            rgb = integrator(s, origin.to(dev), dirs.to(dev), tc.to(dev),
-                             base_pass + k, nb_bounces=nb_bounces,
-                             refract_ind=refract_ind, date=date,
-                             detach_sampling=detach_sampling, **kw)
-            rgb = rgb.to(mesh[0])
-            total = rgb if total is None else total + rgb
+        # every shard's pass is queued before the first copy to mesh[0],
+        # which waits for its card's work
+        rgbs = [integrator(s, o, d, t, base_pass + k, nb_bounces=nb_bounces,
+                           refract_ind=refract_ind, date=date,
+                           detach_sampling=detach_sampling, **kw)
+                for k, (s, o, d, t) in enumerate(
+                    replicas(scene, origin, dirs, tc))]
+        total = rgbs[0]
+        for rgb in rgbs[1:]:
+            total = total + rgb.to(mesh[0])
         return total
 
     sample_pass.n_passes_per_call = len(mesh)

@@ -10,10 +10,10 @@ start it, one process per rank:
          --tile-rays 1024 --passes-per-call 1]
 
 Process 0 saves the resolved [H, W, 3] image to --out. The last line
-each process prints is a JSON object with its rank, passes, and the
-host clock (time.time()) when it entered main, had joined the process
-group, had its scene compiled on its device (the card's context made),
-and finished.
+each process prints is a JSON object with its rank, its device, passes,
+and the host clock (time.time()) when it entered main, had joined the
+process group, had its scene compiled on its device (the card's context
+made), had rendered its last pass (before the gather) and finished.
 """
 import argparse
 import json
@@ -64,6 +64,15 @@ def main(argv=None):
                        passes_per_call=args.passes_per_call,
                        tile_rays=args.tile_rays, device=device)
     r = Renderer(dev, cfg)
+    t_rendered = [t_ready]
+    untimed = r.run
+
+    def timed_run(target):
+        img = untimed(target)
+        t_rendered[0] = time.time()
+        return img
+
+    r.run = timed_run
 
     if args.crash_at is not None:
         run = r.run
@@ -80,9 +89,10 @@ def main(argv=None):
                                checkpoint_every=args.checkpoint_every)
     if rank_and_size()[0] == 0:
         np.save(args.out, img)
-    print(json.dumps({"rank": args.process_id, "passes": r.nb_passes,
+    print(json.dumps({"rank": args.process_id, "device": str(dev.device),
+                      "passes": r.nb_passes,
                       "t_enter": t_enter, "t_joined": t_joined,
-                      "t_ready": t_ready,
+                      "t_ready": t_ready, "t_rendered": t_rendered[0],
                       "t_done": time.time()}), flush=True)
 
 

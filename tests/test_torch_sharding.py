@@ -9,8 +9,11 @@ devices stand in for TPU chips. The RNG seed is a pure function of
     32x16, 3 bounces, by the megakernel protocol (testing/parity.py);
   - the port's sharded pass against its unsharded integrator BIT FOR BIT
     on the four routes of tests/test_sharding.py: dense, megakernel (the
-    plain K1), fused (mesh_demo, the plain K2) and pallas-trace, on 8 and
-    2 shards at 30x17 (510 rays: 8 shards need padding), 2 bounces;
+    plain K1), fused (mesh_demo, the plain K2) and pallas-trace, on 8, 2
+    and 4 shards at 30x17 (510 rays: 8 and 4 shards need padding), 2
+    bounces; on 4 shards also against JAX's sharded pass on 4 of its
+    virtual CPU devices (its dense route), by the megakernel protocol
+    (dense, megakernel) or the fused protocol (fused, pallas-trace);
   - make_sample_sharded_pass against the sequential sum of its passes and
     against JAX's within 1e-6 (tests/test_sharding.py:57);
   - Renderer(shard_devices=8) renders the unsharded image bit for bit and
@@ -42,7 +45,7 @@ from montecarlo_pathtracing_tpu_torch.render.renderer import (
 from montecarlo_pathtracing_tpu_torch.scene import scenes
 from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
 from montecarlo_pathtracing_tpu_torch.testing.parity import (
-    assert_megakernel_protocol)
+    assert_fused_protocol, assert_megakernel_protocol)
 
 BOUNCES = 3
 
@@ -111,12 +114,40 @@ def route_scenes():
             for name in ("box_diffuse", "mesh_demo")}
 
 
-@pytest.mark.parametrize("n_shards", [8, 2])
+@pytest.fixture(scope="module")
+def jax_sharded():
+    """(scene name, devices) -> JAX's pixel-sharded pass 1, 2 bounces, at
+    30x17 on that many of its virtual CPU devices, on its dense route (its
+    kernel routes run interpreted: tens of seconds each)."""
+    held = {}
+
+    def run(name, n):
+        if (name, n) not in held:
+            w, h = 30, 17
+            proj, view = default_rt_camera(w, h)
+            jo, jd, jtc = jcamera_rays(proj, view, w, h)
+            jmesh = jsharding.make_mesh(n)
+            sd, st, pad = jsharding.shard_rays(jmesh, jd.reshape(-1, 3),
+                                               jtc.reshape(-1, 2))
+            acc = jnp.zeros((pad, 3), jnp.float32,
+                            device=jax.sharding.NamedSharding(
+                                jmesh, jax.sharding.PartitionSpec("rays")))
+            fn = jsharding.make_sharded_pass(jmesh, nb_bounces=2)
+            held[name, n] = np.asarray(fn(
+                jcompile(jscenes.build(name)), acc, sd, st, jo, jnp.int32(1),
+                jnp.float32(1.0)))[: w * h]
+        return held[name, n]
+
+    return run
+
+
+@pytest.mark.parametrize("n_shards", [8, 2, 4])
 @pytest.mark.parametrize("label", list(ROUTES))
-def test_sharded_route_matches_unsharded(route_scenes, label, n_shards,
-                                         monkeypatch):
+def test_sharded_route_matches_unsharded(route_scenes, jax_sharded, label,
+                                         n_shards, monkeypatch):
     """Bit for bit: every route is per ray on the CPU, where the wrappers
-    run the kernels' plain versions (counted: the route really ran them)."""
+    run the kernels' plain versions (counted: the route really ran them).
+    On 4 shards, also against JAX's sharded pass on 4 devices."""
     name, route = ROUTES[label]
     dev = route_scenes[name]
     o, d, tc = _rays(30, 17)
@@ -147,6 +178,12 @@ def test_sharded_route_matches_unsharded(route_scenes, label, n_shards,
         assert sharded_calls["K1"] == 0 and sharded_calls["K2"] >= n_shards
     else:
         assert sharded_calls == {"K1": 0, "K2": 0}
+    if n_shards == 4:
+        jwant = jax_sharded(name, 4)
+        if label in ("dense", "megakernel"):
+            assert_megakernel_protocol(jwant, got, f"{label} vs JAX's")
+        else:
+            assert_fused_protocol(jwant, got, f"{label} vs JAX's")
 
 
 def test_sample_sharded_pass_matches_sequential_and_jax():
