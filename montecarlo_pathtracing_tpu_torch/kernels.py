@@ -21,6 +21,8 @@ import time
 
 import torch
 
+from .utils.profiling import span
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -136,7 +138,9 @@ def build_all(names, variants=()) -> dict:
         jobs.append((src, out, tmp, proc, time.perf_counter()))
     failed = []
     for src, out, tmp, proc, t0 in jobs:
-        report, _ = proc.communicate()
+        # the jobs run at once: each span is the wait for its job
+        with span("kernels.build", library=os.path.basename(out)):
+            report, _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {src}:\n{report}")
             continue
@@ -166,8 +170,9 @@ def _load(name: str, extra, bind) -> ctypes.CDLL:
     key = (name, tuple(extra)) if extra else name
     lib = _loaded.get(key)
     if lib is None:
-        lib = ctypes.CDLL(build(name, extra))
-        bind(lib)
+        with span("kernels.load", library=name + "".join(extra)):
+            lib = ctypes.CDLL(build(name, extra))
+            bind(lib)
         _loaded[key] = lib
     return lib
 

@@ -57,6 +57,7 @@ from ..ops.shapes import SOA_FNS
 from ..ops.sort_rays import PARK_Z, ray_sort_key
 from ..ops.vec import apply_affine, apply_linear, safe_rcp
 from ..ops.worklist import INF, bundle_box_entry, tile_bundles
+from ..utils.profiling import span
 from .megakernel import (
     MEGA_CULL_MIN_PRIMS, MEGA_MAX_PRIMS, MEGA_SUPER, _FMAX, _bounce_step,
     _fold_table, _mega_meta, _mega_super_boxes, _mega_table, _new_win,
@@ -791,22 +792,24 @@ def raytrace_fused(scene, O, D, screen_tc, pass_index: int, *,
     dev = D.device
     n = D.shape[0]
     m = -(-n // TILE) * TILE
-    dn = D / torch.linalg.vector_norm(D, dim=-1, keepdim=True)
-    z = torch.zeros((m,), dtype=_F32, device=dev)
-    dx, dy, dz = z.clone(), z.clone(), z + 1.0
-    u, v = z.clone(), z.clone()
-    dx[:n], dy[:n], dz[:n] = dn[:, 0], dn[:, 1], dn[:, 2]
-    u[:n], v[:n] = screen_tc[:, 0], screen_tc[:, 1]
-    o3 = torch.as_tensor(O, dtype=_F32, device=dev).reshape(3)
-    s0, s1, s2 = _rng.srand_soa(u, v, pass_index, date)
-    stf = torch.stack([z + o3[0], z + o3[1], z + o3[2], dx, dy, dz,
-                       z + 0.8, z + 0.8, z + 0.8,   # attenu (:106-107)
-                       z, z, z, z, z, z])
-    int_t = torch.int64 if dev.type == "cpu" else torch.int32
-    sti = torch.stack([_from_u32(x, int_t)
-                       for x in (torch.zeros_like(s0), s0, s1, s2)])
-    lane = torch.arange(m, device=dev)
-    inp = fused_inputs(scene, refract_ind)
+    with span("k2.wavefront"):
+        dn = D / torch.linalg.vector_norm(D, dim=-1, keepdim=True)
+        z = torch.zeros((m,), dtype=_F32, device=dev)
+        dx, dy, dz = z.clone(), z.clone(), z + 1.0
+        u, v = z.clone(), z.clone()
+        dx[:n], dy[:n], dz[:n] = dn[:, 0], dn[:, 1], dn[:, 2]
+        u[:n], v[:n] = screen_tc[:, 0], screen_tc[:, 1]
+        o3 = torch.as_tensor(O, dtype=_F32, device=dev).reshape(3)
+        s0, s1, s2 = _rng.srand_soa(u, v, pass_index, date)
+        stf = torch.stack([z + o3[0], z + o3[1], z + o3[2], dx, dy, dz,
+                           z + 0.8, z + 0.8, z + 0.8,   # attenu (:106-107)
+                           z, z, z, z, z, z])
+        int_t = torch.int64 if dev.type == "cpu" else torch.int32
+        sti = torch.stack([_from_u32(x, int_t)
+                           for x in (torch.zeros_like(s0), s0, s1, s2)])
+        lane = torch.arange(m, device=dev)
+    with span("k2.inputs"):
+        inp = fused_inputs(scene, refract_ind)
     if whole_path is None:
         # mesh scenes want the inter-bounce re-sort; large analytic scenes
         # keep the whole path in one launch
@@ -814,27 +817,36 @@ def raytrace_fused(scene, O, D, screen_tc, pass_index: int, *,
 
     if whole_path:
         if nb_bounces > 0:
-            call(with_schedule(inp, scene, stf), stf, sti, int(nb_bounces))
+            with span("k2.schedule", bounce=0):
+                inp = with_schedule(inp, scene, stf)
+            with span("k2.launch", bounce=0, device=dev):
+                call(inp, stf, sti, int(nb_bounces))
     else:
         sort_lo = scene.prim_bb_min.amin(dim=0)
         sort_hi = scene.prim_bb_max.amax(dim=0)
         park = kernels.host_tensor([0.0, 0.0, PARK_Z, 0.0, 0.0, 1.0], _F32,
                                    dev)[:, None]
         for i in range(nb_bounces):
-            done = sti[0] != 0
-            # park finished lanes outside every box, pointing away
-            stf[0:6] = torch.where(done[None, :], park, stf[0:6])
-            # primaries arrive pixel-coherent from the renderer's 32x32
-            # blocks, so the re-sort starts at bounce 1
-            if sort_rays and i >= 1:
-                key = ray_sort_key((stf[0], stf[1], stf[2]),
-                                   (stf[3], stf[4], stf[5]), done,
-                                   sort_lo, sort_hi)
-                perm = torch.argsort(key, stable=True)
-                stf, sti, lane = stf[:, perm], sti[:, perm], lane[perm]
-            call(with_schedule(inp, scene, stf), stf, sti, 0)
-    # bounce-cap exhaustion returns black (:178)
-    done = sti[0] != 0
-    out = torch.zeros((3, m), dtype=_F32, device=dev)
-    out[:, lane] = torch.where(done[None, :], stf[12:15], 0.0)
-    return out.T[:n]
+            with span("k2.sort", bounce=i):
+                done = sti[0] != 0
+                # park finished lanes outside every box, pointing away
+                stf[0:6] = torch.where(done[None, :], park, stf[0:6])
+                # primaries arrive pixel-coherent from the renderer's 32x32
+                # blocks, so the re-sort starts at bounce 1
+                if sort_rays and i >= 1:
+                    key = ray_sort_key((stf[0], stf[1], stf[2]),
+                                       (stf[3], stf[4], stf[5]), done,
+                                       sort_lo, sort_hi)
+                    perm = torch.argsort(key, stable=True)
+                    stf, sti, lane = stf[:, perm], sti[:, perm], lane[perm]
+            with span("k2.schedule", bounce=i):
+                inp_i = with_schedule(inp, scene, stf)
+            # the launch on the card, K2's plain version on the CPU
+            with span("k2.launch", bounce=i, device=dev):
+                call(inp_i, stf, sti, 0)
+    with span("k2.gather"):
+        # bounce-cap exhaustion returns black (:178)
+        done = sti[0] != 0
+        out = torch.zeros((3, m), dtype=_F32, device=dev)
+        out[:, lane] = torch.where(done[None, :], stf[12:15], 0.0)
+        return out.T[:n]

@@ -57,6 +57,7 @@ from ..ops.intersect import (
 from ..ops.shapes import SOA_FNS
 from ..ops.vec import safe_rcp
 from ..ops.worklist import bundle_box_entry
+from ..utils.profiling import span
 
 TILE = 32 * 128           # rays per tile of the super visit order (the
                            # reference's 32 x 128 ray tile)
@@ -769,5 +770,8 @@ def raytrace_mega(scene, O, D, screen_tc, pass_index: int, *,
     inside), screen_tc: [N,2]. Returns rgb [N,3]. The RNG schedule is
     bit-identical to the reference; float results match it to a few ulp.
     """
-    inp = mega_inputs(scene, O, D, screen_tc, refract_ind)
-    return mega_pass(inp, _rng.seed_y(pass_index, date), int(nb_bounces))
+    with span("k1.inputs"):
+        inp = mega_inputs(scene, O, D, screen_tc, refract_ind)
+    # the launch on the card, K1's plain version on the CPU
+    with span("k1.launch", device=D.device):
+        return mega_pass(inp, _rng.seed_y(pass_index, date), int(nb_bounces))

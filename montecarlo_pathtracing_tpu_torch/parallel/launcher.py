@@ -31,6 +31,8 @@ import sys
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
+
 # a lost peer fails the survivors' collectives after this long, instead
 # of hanging them
 TIMEOUT_S = 120
@@ -145,20 +147,24 @@ def run_multihost_render(renderer, spp: int, checkpoint: str | None = None,
         renderer.nb_passes = base          # pass-indexed seeds start here
     while renderer.nb_passes < end:
         target = min(end, renderer.nb_passes + max(1, checkpoint_every))
-        renderer.run(target)
+        with span("multihost.block", rank=pid):
+            renderer.run(target)
         if ckpt:
-            renderer.save_checkpoint(ckpt)
-    acc = renderer.accumulator()
-    if nproc > 1:
-        mine = torch.from_numpy(acc)
-        parts = [torch.empty_like(mine) for _ in range(nproc)]
-        dist.all_gather(parts, mine)
-        acc = parts[0].numpy()
-        for part in parts[1:]:          # process-ascending order
-            acc = acc + part.numpy()
+            with span("multihost.checkpoint", rank=pid):
+                renderer.save_checkpoint(ckpt)
+    with span("multihost.gather", rank=pid):
+        acc = renderer.accumulator()
+        if nproc > 1:
+            mine = torch.from_numpy(acc)
+            parts = [torch.empty_like(mine) for _ in range(nproc)]
+            dist.all_gather(parts, mine)
+            acc = parts[0].numpy()
+            for part in parts[1:]:          # process-ascending order
+                acc = acc + part.numpy()
     # resolve through the renderer, so the block32 pixel permutation is
     # inverted exactly as in Renderer.image()
-    return renderer.resolve(acc, passes=spp)
+    with span("multihost.resolve", rank=pid):
+        return renderer.resolve(acc, passes=spp)
 
 
 def run_distributed_render(renderer, spp: int, checkpoint: str | None,

@@ -37,6 +37,7 @@ import torch
 
 from ..models.registry import get_integrator
 from ..scene.device import DeviceScene, to_device
+from ..utils.profiling import span
 from .launcher import first_card
 
 
@@ -147,9 +148,11 @@ def make_sharded_pass(mesh: list, integrator_name: str = "montecarlo", *,
             raise ValueError(f"{len(mesh)} shards, given {len(acc)} "
                              f"accumulators, {len(dirs)} and {len(tc)} rays")
         for (s, o), a, d, t in zip(replicas(scene, origin), acc, dirs, tc):
-            a.add_(integrator(s, o, d, t, pass_index, nb_bounces=nb_bounces,
-                              refract_ind=refract_ind, date=date,
-                              detach_sampling=detach_sampling, **kw))
+            rgb = integrator(s, o, d, t, pass_index, nb_bounces=nb_bounces,
+                             refract_ind=refract_ind, date=date,
+                             detach_sampling=detach_sampling, **kw)
+            with span("accumulate", device=a.device):
+                a.add_(rgb)
         return acc
 
     return one_pass

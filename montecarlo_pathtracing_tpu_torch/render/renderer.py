@@ -31,6 +31,7 @@ from ..models.registry import get_integrator
 from ..parallel.sharding import make_mesh, make_sharded_pass
 from ..scene.device import DeviceScene, compile_scene
 from ..utils.image import write_png
+from ..utils.profiling import span
 from .camera import default_rt_camera, camera_rays
 
 
@@ -107,6 +108,10 @@ class Renderer:
     def __init__(self, scene: DeviceScene, config: RenderConfig,
                  proj: np.ndarray | None = None,
                  view: np.ndarray | None = None):
+        with span("renderer.init"):
+            self._init(scene, config, proj, view)
+
+    def _init(self, scene, config, proj, view):
         self.device = torch.device(config.device)
         if scene.device.type != self.device.type:
             raise ValueError(f"scene is on {scene.device}, config.device is "
@@ -173,10 +178,11 @@ class Renderer:
         (render/renderer.py:196-197)."""
         for k in range(n_passes):
             for t in range(self._ntiles):
-                self._pass(self.scene, [a[t] for a in self._accs],
-                           [d[t] for d in self._shard_dirs],
-                           [c[t] for c in self._shard_tc], self._origin,
-                           base_pass + k, self.config.refract_ind)
+                with span("tile", pass_index=base_pass + k, tile=t):
+                    self._pass(self.scene, [a[t] for a in self._accs],
+                               [d[t] for d in self._shard_dirs],
+                               [c[t] for c in self._shard_tc], self._origin,
+                               base_pass + k, self.config.refract_ind)
 
     @property
     def route(self) -> dict:
@@ -221,14 +227,16 @@ class Renderer:
         passes."""
         ppc = max(max(1, self.config.passes_per_call),
                   max(1, self.config.paths_per_pass))
-        while self.nb_passes + ppc <= spp:
-            self._passes(self.nb_passes, ppc)
-            self.nb_passes += ppc
-        while self.nb_passes < spp:
-            self.render_pass()
-        for dev in dict.fromkeys(self._mesh):
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        with span("advance", passes=max(0, spp - self.nb_passes)):
+            while self.nb_passes + ppc <= spp:
+                self._passes(self.nb_passes, ppc)
+                self.nb_passes += ppc
+            while self.nb_passes < spp:
+                self.render_pass()
+            for dev in dict.fromkeys(self._mesh):
+                if dev.type == "cuda":
+                    with span("advance.sync", device=dev):
+                        torch.cuda.synchronize(dev)
 
     def run(self, spp: int):
         """advance(spp) + resolve: returns the [H, W, 3] image."""
@@ -239,15 +247,16 @@ class Renderer:
         """Resolve an accumulator into an image: undo the pixel-block
         layout permutation, divide by the pass count (average.frag
         analog). `acc` defaults to this renderer's accumulator."""
-        w, h = self.config.render_width, self.config.render_height
-        if passes is None:
-            passes = self.nb_passes
-        a = self.accumulator() if acc is None else acc
-        if isinstance(a, torch.Tensor):
-            a = a.detach().cpu().numpy()
-        a = np.asarray(a).reshape(-1, 3)[: self._npix]
-        a = a[self._inv_perm]              # undo the pixel-block layout
-        return (a / max(1, passes)).reshape(h, w, 3)
+        with span("resolve"):
+            w, h = self.config.render_width, self.config.render_height
+            if passes is None:
+                passes = self.nb_passes
+            a = self.accumulator() if acc is None else acc
+            if isinstance(a, torch.Tensor):
+                a = a.detach().cpu().numpy()
+            a = np.asarray(a).reshape(-1, 3)[: self._npix]
+            a = a[self._inv_perm]              # undo the pixel-block layout
+            return (a / max(1, passes)).reshape(h, w, 3)
 
     def accumulator(self) -> np.ndarray:
         """The accumulator on the host, [tiles, tile rays, 3] in the

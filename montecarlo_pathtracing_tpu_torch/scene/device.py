@@ -32,6 +32,7 @@ from .scene import (
     ScenePrimitives, CODE_MESH, CODE_SPHERE, CODE_CUBE, CODE_CYLINDER,
     CODE_CONE, CODE_ORIENTED_QUAD,
 )
+from ..utils.profiling import span
 
 F32 = np.float32
 
@@ -209,6 +210,11 @@ def compile_scene(scene: ScenePrimitives, *, analytic_chunk: int = 64,
                   device="cuda") -> DeviceScene:
     """finalize() analog: emissive sort -> dense arrays on `device` (the
     card unless the caller names the CPU)."""
+    with span("scene.compile"):
+        return _compile(scene, analytic_chunk, tri_chunk, flat_face, device)
+
+
+def _compile(scene, analytic_chunk, tri_chunk, flat_face, device):
     nb_emissives = scene.sort_emissive_first()
     n = scene.nb
     if n == 0:

@@ -11,11 +11,14 @@ start it, one process per rank:
 
 Process 0 saves the resolved [H, W, 3] image to --out. The last line
 each process prints is a JSON object with its rank, its device, passes,
-and the host clock (time.time()) when it entered main, had joined the
+the host clock (time.time()) when it entered main, had joined the
 process group, had its scene compiled on its device (the card's context
-made), had rendered its last pass (before the gather) and finished.
+made), had rendered its last pass (before the gather) and finished, and
+the count of each span it recorded (utils/profiling: spans are on in
+the worker).
 """
 import argparse
+import collections
 import json
 import os
 import time
@@ -52,7 +55,9 @@ def main(argv=None):
     from ..render.renderer import RenderConfig, Renderer
     from ..scene import scenes
     from ..scene.device import compile_scene
+    from ..utils.profiling import enable_spans, take_spans
 
+    enable_spans()
     init_distributed(f"localhost:{args.port}", args.num_processes,
                      args.process_id)
     t_joined = time.time()
@@ -93,7 +98,9 @@ def main(argv=None):
                       "passes": r.nb_passes,
                       "t_enter": t_enter, "t_joined": t_joined,
                       "t_ready": t_ready, "t_rendered": t_rendered[0],
-                      "t_done": time.time()}), flush=True)
+                      "t_done": time.time(),
+                      "spans": collections.Counter(
+                          s.name for s in take_spans())}), flush=True)
 
 
 if __name__ == "__main__":

@@ -191,18 +191,20 @@ def test_render_scene_equals_renderer_run():
 
 
 def test_profiling_helpers_on_the_cpu(tmp_path, monkeypatch):
-    out, dt = profiling.timed_block(lambda a, b: (a + b, {"x": a}),
-                                    torch.ones(3), torch.ones(3))
-    assert torch.equal(out[0], torch.full((3,), 2.0)) and dt >= 0.0
     assert profiling.device_memory_stats() == {}
-    timer = profiling.PassTimer(rays_per_pass=100, window=3)
-    assert timer.passes_per_s == 0.0
-    for _ in range(5):
-        timer.tick()
-        time.sleep(0.002)
-    assert len(timer.times) == 4
-    assert timer.passes_per_s > 0
-    assert timer.rays_per_s == pytest.approx(100 * timer.passes_per_s)
+    # spans: off by default; on, one record of the host's time inside
+    profiling.take_spans()
+    assert profiling.span("tile") is profiling.span("advance")
+    profiling.enable_spans()
+    try:
+        t0 = time.time_ns()
+        with profiling.span("tile", tile=1):
+            time.sleep(0.002)
+        (s,) = profiling.take_spans()
+    finally:
+        profiling.enable_spans(False)
+    assert (s.name, s.parent, s.attrs) == ("tile", -1, {"tile": 1})
+    assert s.end - s.start >= 2_000_000 and abs(s.start - t0) < 10 ** 8
     with profiling.trace_context(str(tmp_path / "trace")) as prof:
         torch.ones(64).sum()
     assert prof.key_averages()

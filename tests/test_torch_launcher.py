@@ -2,7 +2,8 @@
 
   - run_multihost_render in one process equals Renderer.image() BIT for
     bit at 64x48, where the block32 pixel permutation is not the
-    identity (a launcher that forgot to invert it scrambles the image);
+    identity (a launcher that forgot to invert it scrambles the image),
+    and records its block, checkpoint, gather and resolve spans;
   - it is held against the JAX package's one-process
     run_multihost_render on the dense route by the megakernel protocol;
   - process_checkpoint_path names what JAX's names; run_distributed_render
@@ -10,8 +11,9 @@
   - two gloo processes (testing/launcher_worker.py, box_diffuse 64x48, 6
     bounces, 8 spp, the plain K1) against a single-process render within
     rtol 1e-5, atol 1e-6 (the cross-process sum reorders float adds;
-    tests/test_launcher.py:112), and a crash after 2 local passes
-    followed by a relaunch resumes to a BIT-identical image.
+    tests/test_launcher.py:112), each process's spans counting its
+    blocks and one gather, and a crash after 2 local passes followed by
+    a relaunch resumes to a BIT-identical image.
 Each subprocess runs single-threaded with a 120 s limit and is killed
 past it.
 """
@@ -37,6 +39,7 @@ from montecarlo_pathtracing_tpu_torch.scene import scenes
 from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
 from montecarlo_pathtracing_tpu_torch.testing.parity import (
     assert_megakernel_protocol)
+from montecarlo_pathtracing_tpu_torch.utils import profiling
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = "montecarlo_pathtracing_tpu_torch.testing.launcher_worker"
@@ -103,6 +106,29 @@ def test_single_process_launcher_matches_renderer_image():
     assert not np.array_equal(r._inv_perm, np.arange(r._npix))
 
 
+def test_single_process_launcher_records_its_spans(tmp_path):
+    """Each block of passes, each checkpoint, the gather and the resolve
+    in a span of rank 0; a block's Renderer.run inside its span."""
+    r = _renderer(nb_bounces=2)
+    profiling.take_spans()
+    profiling.enable_spans()
+    try:
+        run_multihost_render(r, 2, checkpoint=str(tmp_path / "s.npz"),
+                             checkpoint_every=1)
+        spans = profiling.take_spans()
+    finally:
+        profiling.enable_spans(False)
+    mine = [s for s in spans if s.name.startswith("multihost.")]
+    assert [s.name for s in mine] == [
+        "multihost.block", "multihost.checkpoint"] * 2 + [
+        "multihost.gather", "multihost.resolve"]
+    assert all(s.attrs == {"rank": 0} and s.parent == -1 for s in mine)
+    for s in spans:
+        if s.name in ("advance", "resolve"):
+            assert spans[s.parent].name in ("multihost.block",
+                                            "multihost.resolve")
+
+
 def test_single_process_launcher_matches_jax_launcher(tmp_path):
     r = _renderer(nb_bounces=3, use_kernels=False)
     ck = str(tmp_path / "port.npz")
@@ -152,6 +178,10 @@ def uninterrupted(tmp_path_factory):
     lines = [json.loads(log.strip().splitlines()[-1]) for _, log in results]
     assert [d["rank"] for d in lines] == [0, 1]
     assert [d["passes"] for d in lines] == [SPP // 2, SPP]
+    # each process: 4 passes in blocks of 2, one gather
+    for d in lines:
+        assert d["spans"]["multihost.block"] == 2
+        assert d["spans"]["multihost.gather"] == 1
     return np.load(out)
 
 

@@ -13,11 +13,13 @@ The card itself runs in chip_smoke.py phase 17; here:
     device through torch.tensor / torch.as_tensor / Tensor.new_tensor
     (on a card a synchronous cudaMemcpy that waits for the card's queued
     work), the kernels' plain versions left out (on the card they are the
-    kernels). A route that adds one fails here;
+    kernels). A route that adds one fails here; the K1 and K2 routes
+    make none with spans on either;
   - each kernel wrapper counts its launches by card; kernels.host_tensor;
   - the sharded pass copies the scene and the camera origin to each
     device once, not on every call.
 """
+import collections
 import functools
 
 import numpy as np
@@ -39,6 +41,7 @@ from montecarlo_pathtracing_tpu_torch.render.camera import (
     camera_rays, default_rt_camera)
 from montecarlo_pathtracing_tpu_torch.scene import scenes
 from montecarlo_pathtracing_tpu_torch.scene.device import compile_scene
+from montecarlo_pathtracing_tpu_torch.utils import profiling
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -258,6 +261,25 @@ def test_sharded_pass_makes_no_host_sync(label, monkeypatch):
     rec = _one_pass(name, route, monkeypatch)
     assert rec.plain == plain
     assert rec.by_shard == [0, 0, 0, 0], rec.ops
+
+
+@pytest.mark.parametrize("label", ["K1", "K2"])
+def test_sharded_pass_with_spans_makes_no_host_sync(label, monkeypatch):
+    """Spans on add no host sync: they read the host's clock alone."""
+    name, route, plain = ROUTES[label]
+    profiling.take_spans()
+    profiling.enable_spans()
+    try:
+        rec = _one_pass(name, route, monkeypatch)
+        spans = profiling.take_spans()
+    finally:
+        profiling.enable_spans(False)
+    assert rec.plain == plain
+    assert rec.by_shard == [0, 0, 0, 0], rec.ops
+    count = collections.Counter(s.name for s in spans)
+    assert count["accumulate"] == 4
+    assert count["k1.launch" if label == "K1" else "k2.launch"] == (
+        4 if label == "K1" else 8)
 
 
 def test_sync_recorder_sees_a_sync(monkeypatch):
