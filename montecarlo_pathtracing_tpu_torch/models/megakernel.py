@@ -27,6 +27,8 @@ Three functions compute a pass from the same `MegaInputs`:
   - `k1_launch`: the wrapper that launches K1 on CUDA tensors;
   - `mega_pass`: the route, which takes the plain version for tensors on
     the CPU and K1 for tensors on a CUDA device, and raises otherwise.
+`mega_inputs` builds those inputs; `MegaMemo` keeps them across the
+passes of a renderer, which hands it the same tile tensors every pass.
 
 The cull differs from the TPU's in grain: the TPU skipped a prim for a
 whole 4096-ray tile when no ray of the tile could reach its box; here
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -730,10 +733,28 @@ def _mega_table(scene, group_ids=None):
     return torch.cat(cols, dim=0).T.contiguous()   # [38, P]
 
 
-def mega_inputs(scene, O, D, screen_tc, refract_ind) -> MegaInputs:
-    """Pad and lay out one batch of camera rays for K1 (the pass-
-    independent part of `raytrace_mega`). O: [3] origin, D: [n,3]
-    directions (normalized here), screen_tc: [n,2]."""
+def _scene_tensors(scene):
+    """The scene tensors that `_mega_table` and `_mega_super_boxes` read."""
+    return (*scene.group_prim, *scene.group_inv, *scene.group_transfo,
+            scene.mat, scene.color, scene.prim_bb_min, scene.prim_bb_max)
+
+
+def _scene_part(scene, dev):
+    """(tab, sbb, group_desc, groups, cull): K1's inputs that depend on
+    the scene alone, group_desc on `dev`."""
+    groups, total = _mega_meta(scene)
+    cull = total >= MEGA_CULL_MIN_PRIMS
+    # only the culled fold reads the super boxes
+    sbb = _mega_super_boxes(scene) if cull else None
+    return (_mega_table(scene), sbb,
+            kernels.host_tensor(groups, torch.int32, dev), groups, cull)
+
+
+def _build(scene, part, O, D, screen_tc, refract_ind) -> MegaInputs:
+    """K1's inputs of one batch of camera rays over the scene's `part`
+    (`_scene_part`); counts a build in `mega_inputs.builds`."""
+    mega_inputs.builds += 1
+    tab, sbb, group_desc, groups, cull = part
     dev = D.device
     n = D.shape[0]
     np_ = -(-n // TILE) * TILE
@@ -749,29 +770,115 @@ def mega_inputs(scene, O, D, screen_tc, refract_ind) -> MegaInputs:
     o3 = torch.as_tensor(O, dtype=torch.float32, device=dev).reshape(3)
     fpar = torch.cat([o3, torch.full((1,), float(refract_ind),
                                      dtype=torch.float32, device=dev)])
-    groups, total = _mega_meta(scene)
-    cull = total >= MEGA_CULL_MIN_PRIMS
-    sbb = ordr = None
-    if cull:   # only the culled fold reads the super boxes and order
-        sbb = _mega_super_boxes(scene)
-        ordr = _mega_super_order(d.T, o3, sbb, groups)
+    ordr = _mega_super_order(d.T, o3, sbb, groups) if cull else None
     return MegaInputs(
-        dirs=d, tc=tc, fpar=fpar, tab=_mega_table(scene), sbb=sbb, ordr=ordr,
-        group_desc=kernels.host_tensor(groups, torch.int32, dev),
-        groups=groups, n=n, has_transparent=bool(scene.has_transparent),
-        cull=cull)
+        dirs=d, tc=tc, fpar=fpar, tab=tab, sbb=sbb, ordr=ordr,
+        group_desc=group_desc, groups=groups, n=n,
+        has_transparent=bool(scene.has_transparent), cull=cull)
+
+
+def mega_inputs(scene, O, D, screen_tc, refract_ind) -> MegaInputs:
+    """Pad and lay out one batch of camera rays for K1 (the pass-
+    independent part of `raytrace_mega`). O: [3] origin, D: [n,3]
+    directions (normalized here), screen_tc: [n,2]. Every call builds;
+    `MegaMemo` keeps what it built across passes."""
+    return _build(scene, _scene_part(scene, D.device), O, D, screen_tc,
+                  refract_ind)
+
+
+# K1's inputs built (`mega_inputs` and `MegaMemo` misses) and reused
+# (`MegaMemo` hits), in tile calls
+mega_inputs.builds = 0
+mega_inputs.reuses = 0
+
+
+def _stamp(*objs):
+    """(id, in-place version) of each object: equal stamps mean the same
+    tensors, not modified in place since, as far as the code can see.
+    What is not a tensor has no version and stamps as new each time."""
+    return tuple((id(t), t._version if isinstance(t, torch.Tensor)
+                  else object()) for t in objs)
+
+
+class MegaMemo:
+    """K1's inputs kept across the passes of one pass function
+    (parallel/sharding.make_sharded_pass makes one each): a tile's inputs
+    are built on its first call and reused on every later call that
+    passes the same scene, origin, ray and screen-coordinate objects,
+    none of them (nor the scene tensors the tables read) modified in
+    place since, and the same IOR. Anything else rebuilds. Only the
+    pass's seed, which K1 takes as a scalar, changes between passes.
+
+    An entry is keyed by id() with a weakref finalizer evicting it when
+    its object dies (models/debug_views' idiom): one per ray tensor,
+    each over one shared part per scene object. A renderer that hands
+    the same tile tensors on every pass holds tiles x shards entries;
+    rays passed once are dropped with them. The memo's tensors live no
+    longer than the memo: the finalizers hold it weakly."""
+
+    def __init__(self):
+        self._scenes = {}   # id(scene) -> (stamp, pinned, part)
+        self._rays = {}     # id(D) -> (stamp, pinned, MegaInputs)
+
+    def __len__(self):
+        return len(self._rays)
+
+    def _held(self, name, obj, stamp):
+        """The value kept for `obj` in the table `name` if its stamp is
+        `stamp`, else None."""
+        held = getattr(self, name).get(id(obj))
+        return held[2] if held is not None and held[0] == stamp else None
+
+    def _keep(self, name, obj, stamp, pinned, value):
+        """Keep `value` for `obj` in the table `name` until `obj` dies;
+        `pinned` holds what the stamp's ids name."""
+        table = getattr(self, name)
+        if id(obj) not in table:
+            weakref.finalize(obj, MegaMemo._evict, weakref.ref(self), name,
+                             id(obj))
+        table[id(obj)] = (stamp, pinned, value)
+
+    @staticmethod
+    def _evict(memo_ref, name, key):
+        memo = memo_ref()
+        if memo is not None:
+            getattr(memo, name).pop(key, None)
+
+    def inputs(self, scene, O, D, screen_tc, refract_ind):
+        """(K1's inputs for these rays, True if built by this call)."""
+        tensors = _scene_tensors(scene)
+        stamp = (D.device, _stamp(*tensors))
+        part = self._held("_scenes", scene, stamp)
+        if part is None:
+            part = _scene_part(scene, D.device)
+            self._keep("_scenes", scene, stamp, tensors, part)
+        stamp = (id(part), _stamp(D, screen_tc, O), float(refract_ind))
+        inp = self._held("_rays", D, stamp)
+        if inp is not None:
+            mega_inputs.reuses += 1
+            return inp, False
+        inp = _build(scene, part, O, D, screen_tc, refract_ind)
+        self._keep("_rays", D, stamp, (part, screen_tc, O), inp)
+        return inp, True
 
 
 def raytrace_mega(scene, O, D, screen_tc, pass_index: int, *,
-                  nb_bounces: int, refract_ind, date=0.0):
+                  nb_bounces: int, refract_ind, date=0.0,
+                  mega_memo: MegaMemo | None = None):
     """Whole-pass megakernel route of models.montecarlo.raytrace.
 
     O: [3] camera origin (pinhole model), D: [N,3] ray dirs (normalized
     inside), screen_tc: [N,2]. Returns rgb [N,3]. The RNG schedule is
     bit-identical to the reference; float results match it to a few ulp.
+    mega_memo, if given, keeps K1's inputs across calls (`MegaMemo`);
+    without it every call builds them.
     """
-    with span("k1.inputs"):
-        inp = mega_inputs(scene, O, D, screen_tc, refract_ind)
+    with span("k1.inputs") as s:
+        if mega_memo is None:
+            inp, built = mega_inputs(scene, O, D, screen_tc, refract_ind), True
+        else:
+            inp, built = mega_memo.inputs(scene, O, D, screen_tc, refract_ind)
+        s.set(built=built)
     # the launch on the card, K1's plain version on the CPU
     with span("k1.launch", device=D.device):
         return mega_pass(inp, _rng.seed_y(pass_index, date), int(nb_bounces))

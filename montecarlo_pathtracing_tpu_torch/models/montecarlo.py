@@ -245,7 +245,8 @@ def raytrace(scene, O, D, screen_tc, pass_index: int, *, nb_bounces: int,
              use_fused: bool | None = None,
              cull_chunks: bool | None = None,
              nondiff_trace: bool | None = None,
-             sort_rays: bool | None = None):
+             sort_rays: bool | None = None,
+             mega_memo=None):
     """tp/montecarlo.frag:182-188: srand + one random path per lane.
 
     O [3], D [N,3], screen_tc [N,2] in; rgb [N,3] out, on the tensors'
@@ -263,7 +264,8 @@ def raytrace(scene, O, D, screen_tc, pass_index: int, *, nb_bounces: int,
     gradients) re-sorts its wavefront between bounces. With kernels off
     the dense route runs: no padding, and nondiff_trace and sort_rays
     resolve to False (the rays stay in their order, the trace in the
-    backward pass).
+    backward pass). mega_memo (a megakernel.MegaMemo) keeps the
+    megakernel's inputs across calls; the other routes ignore it.
     """
     if nondiff_trace is None:
         nondiff_trace = use_kernels and detach_sampling
@@ -273,7 +275,7 @@ def raytrace(scene, O, D, screen_tc, pass_index: int, *, nb_bounces: int,
     if use_megakernel:
         return raytrace_mega(
             scene, O, D, screen_tc, pass_index, nb_bounces=nb_bounces,
-            refract_ind=refract_ind, date=date)
+            refract_ind=refract_ind, date=date, mega_memo=mega_memo)
     if use_fused is None:
         use_fused = (use_kernels and not detach_sampling
                      and fused_eligible(scene))

@@ -9,7 +9,7 @@ of the scene and the camera origin there. Nothing in a call waits for
 its card (no host sync, no copy from another card), so the loop queues
 each card's work and goes on to the next card's call while the cards
 run. Each card's work still starts only once the host has queued it:
-the host's per-call work (K1's inputs, K2's schedules, the wavefront's
+the host's per-call work (K1's launch, K2's schedules, the wavefront's
 torch ops) runs shard after shard on the one thread, and on the
 host-bound routes a pass over N cards takes about N times the host time
 of a pass over one (PERF.md, "Four cards"). Shards that share a card run one
@@ -35,6 +35,7 @@ import inspect
 
 import torch
 
+from ..models.megakernel import MegaMemo
 from ..models.registry import get_integrator
 from ..scene.device import DeviceScene, to_device
 from ..utils.profiling import span
@@ -106,6 +107,15 @@ def route_keywords(integrator, route: dict | None) -> dict:
     return {k: v for k, v in dict(route or {}).items() if k in params}
 
 
+def _route(integrator, route: dict | None) -> dict:
+    """`route_keywords` with a new models.megakernel.MegaMemo, for the
+    integrators that name `mega_memo`: a pass function's memo, which
+    builds K1's inputs once per tile and shard and reuses them on every
+    later pass that hands it the same objects."""
+    return route_keywords(integrator, {**(route or {}),
+                                       "mega_memo": MegaMemo()})
+
+
 def _replicator(mesh: list):
     """(scene, tensors...) -> for each shard, their replicas on its device:
     one copy per distinct device, kept while the same objects are passed.
@@ -138,9 +148,11 @@ def make_sharded_pass(mesh: list, integrator_name: str = "montecarlo", *,
     dict(use_kernels=True, use_megakernel=True)), filtered by its
     signature. Every route, the kernels' included, runs whole on each
     shard: the production layout, and bit-identical to one device on the
-    per-ray routes."""
+    per-ray routes. The megakernel route keeps each tile's and shard's
+    inputs for the pass function's life, in `fn.mega_memo` (`_route`;
+    None for integrators that take no memo)."""
     integrator = get_integrator(integrator_name)
-    kw = route_keywords(integrator, route)
+    kw = _route(integrator, route)
     replicas = _replicator(mesh)
 
     def one_pass(scene, acc, dirs, tc, origin, pass_index, refract_ind):
@@ -155,6 +167,7 @@ def make_sharded_pass(mesh: list, integrator_name: str = "montecarlo", *,
                 a.add_(rgb)
         return acc
 
+    one_pass.mega_memo = kw.get("mega_memo")
     return one_pass
 
 
@@ -166,9 +179,11 @@ def make_sample_sharded_pass(mesh: list, integrator_name: str = "montecarlo",
     on its device; the partial images are summed onto the first device
     in shard order. One call advances the accumulator by len(mesh)
     passes (`fn.n_passes_per_call`). Returns fn(scene, dirs, tc, origin,
-    base_pass, refract_ind) -> the summed rgb."""
+    base_pass, refract_ind) -> the summed rgb. The megakernel route keeps
+    its inputs in `fn.mega_memo`, as make_sharded_pass's does: shards
+    that share a device share them."""
     integrator = get_integrator(integrator_name)
-    kw = route_keywords(integrator, route)
+    kw = _route(integrator, route)
     replicas = _replicator(mesh)
 
     def sample_pass(scene, dirs, tc, origin, base_pass, refract_ind):
@@ -185,4 +200,5 @@ def make_sample_sharded_pass(mesh: list, integrator_name: str = "montecarlo",
         return total
 
     sample_pass.n_passes_per_call = len(mesh)
+    sample_pass.mega_memo = kw.get("mega_memo")
     return sample_pass

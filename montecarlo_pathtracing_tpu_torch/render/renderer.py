@@ -153,10 +153,16 @@ class Renderer:
         n = len(self._mesh)
         sizes = [self._tile // n + (k < self._tile % n) for k in range(n)]
         self._cuts = np.cumsum([0] + sizes)
-        self._shard_dirs = [self._dirs[:, lo:hi].to(dev).contiguous()
-                            for dev, lo, hi in self._shards()]
-        self._shard_tc = [self._tc[:, lo:hi].to(dev).contiguous()
-                          for dev, lo, hi in self._shards()]
+        shard_dirs = [self._dirs[:, lo:hi].to(dev).contiguous()
+                      for dev, lo, hi in self._shards()]
+        shard_tc = [self._tc[:, lo:hi].to(dev).contiguous()
+                    for dev, lo, hi in self._shards()]
+        # each tile's (dirs, tc) shards, the same objects on every pass:
+        # the pass function keeps the megakernel's inputs while it is
+        # handed the same tensors (models/megakernel.MegaMemo)
+        self._tile_rays = [([d[t] for d in shard_dirs],
+                            [c[t] for c in shard_tc])
+                           for t in range(self._ntiles)]
         self._pass = make_sharded_pass(
             self._mesh, config.integrator, nb_bounces=config.nb_bounces,
             detach_sampling=config.detach_sampling, date=config.date,
@@ -177,12 +183,11 @@ class Renderer:
         signature names, as in the reference renderer
         (render/renderer.py:196-197)."""
         for k in range(n_passes):
-            for t in range(self._ntiles):
+            for t, (dirs, tcs) in enumerate(self._tile_rays):
                 with span("tile", pass_index=base_pass + k, tile=t):
-                    self._pass(self.scene, [a[t] for a in self._accs],
-                               [d[t] for d in self._shard_dirs],
-                               [c[t] for c in self._shard_tc], self._origin,
-                               base_pass + k, self.config.refract_ind)
+                    self._pass(self.scene, [a[t] for a in self._accs], dirs,
+                               tcs, self._origin, base_pass + k,
+                               self.config.refract_ind)
 
     @property
     def route(self) -> dict:

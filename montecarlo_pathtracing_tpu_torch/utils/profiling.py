@@ -44,6 +44,9 @@ class _NoSpan:
     def __exit__(self, *exc):
         return False
 
+    def set(self, **attrs):
+        pass
+
 
 _NO_SPAN = _NoSpan()
 
@@ -79,6 +82,13 @@ class _Recorder:
         ends[i] = time.perf_counter_ns() + self.offset
         return False
 
+    def set(self, **attrs):
+        """Add attrs to the innermost open span: those the call site
+        knows only inside it."""
+        ends, i, _ = self.open[-1]
+        if ends is self.ends:   # not taken since it opened
+            self.attrs[i].update(attrs)
+
 
 _recorder = _Recorder()
 
@@ -87,7 +97,8 @@ def span(name: str, **attrs):
     """A context manager that records the host's time inside it as one
     span when spans are on (enable_spans), and the one shared no-op
     otherwise. Use it in a `with` statement: the span starts when
-    `span` is called."""
+    `span` is called. `with span(...) as s:` gives `s.set(**attrs)`,
+    which adds attrs known only inside the span."""
     rec = _recorder
     if not rec.on:
         return _NO_SPAN

@@ -231,3 +231,37 @@ def test_pad_columns_never_hit():
     sky_low = np.array([0.5, 0.5, 0.9]) * 0.8   # attenu 0.8 * sky(d.z<0)
     np.testing.assert_allclose(got, np.broadcast_to(sky_low, got.shape),
                                atol=1e-5)
+
+
+def test_direct_calls_build_k1_inputs_every_time():
+    """raytrace without a memo builds K1's inputs on every call, as
+    before the memo; with one, the second call on the same tensors
+    reuses them and renders the same bits."""
+    _, dev = _scenes("box_diffuse")
+    o, d, tc = (torch.as_tensor(a) for a in _rays(8, 8))
+    b0, u0 = mk.mega_inputs.builds, mk.mega_inputs.reuses
+    plain = [raytrace(dev, o, d, tc, 1, nb_bounces=2, refract_ind=1.0,
+                      use_kernels=True) for _ in range(2)]
+    assert (mk.mega_inputs.builds, mk.mega_inputs.reuses) == (b0 + 2, u0)
+    memo = mk.MegaMemo()
+    kept = [raytrace(dev, o, d, tc, 1, nb_bounces=2, refract_ind=1.0,
+                     use_kernels=True, mega_memo=memo) for _ in range(2)]
+    assert (mk.mega_inputs.builds, mk.mega_inputs.reuses) == (b0 + 3, u0 + 1)
+    for a in plain + kept[1:]:
+        np.testing.assert_array_equal(a.numpy(), kept[0].numpy())
+
+
+def test_k1_memo_drops_inputs_with_their_rays():
+    """An entry lives as long as its ray tensor: rays passed once leave
+    nothing behind, and a dead scene's table goes with it."""
+    _, dev = _scenes("box_diffuse")
+    o, d, tc = (torch.as_tensor(a) for a in _rays(8, 8))
+    memo = mk.MegaMemo()
+    for _ in range(4):
+        rays = d.clone()
+        memo.inputs(dev, o, rays, tc, 1.0)
+        assert len(memo) == 1
+    del rays
+    assert len(memo) == 0 and len(memo._scenes) == 1
+    del dev
+    assert len(memo._scenes) == 0

@@ -9,6 +9,8 @@ on the CPU.
     the span it ran inside, one request number per `advance`, a `tile`
     a pass and tile, a `k2.sort`, `k2.schedule` and `k2.launch` a tile
     and bounce; set-up records `scene.compile` and `renderer.init`;
+  - `k1.inputs` says whether the call built K1's inputs: the first
+    pass builds each tile's, later passes reuse them;
   - the image is bit for bit the same with spans on and off;
   - spans are on torch.profiler's clock: a span around a matmul lies
     within 200 us of the `aten::mm` event's bounds.
@@ -128,6 +130,14 @@ def test_a_render_records_the_span_tree(traced, route):
         for leaf in ("k2.wavefront", "k2.inputs", "k2.gather"):
             assert count[leaf] == tiles
     assert count["accumulate"] == tiles
+
+
+def test_k1_inputs_span_says_whether_built(traced):
+    """The renderer's first pass builds each tile's K1 inputs; its later
+    passes reuse them (models/megakernel.MegaMemo)."""
+    r, _, spans = traced["K1"]
+    built = [s.attrs["built"] for s in spans if s.name == "k1.inputs"]
+    assert built == [True] * r._ntiles + [False] * r._ntiles
 
 
 @pytest.mark.parametrize("route", list(RENDERS))
