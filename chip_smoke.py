@@ -1,12 +1,13 @@
 """GPU smoke of the PyTorch/CUDA port: build every kernel, hold each one
 against its plain PyTorch version, and drive every ported path once.
 
-    python3 chip_smoke.py [--only k1|trace|dense|diff|tools|multi|multicard]
+    python3 chip_smoke.py [--only k1|whole|trace|dense|diff|tools|multi|multicard]
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
 and prints no result, without them. Phases (about 13 minutes in all on
 an H100, the builds included; `--only k1` runs phases 1-3 with K1 built
-alone, `--only trace` phases 1 and 7 with the trace kernels built alone,
+alone, `--only whole` phases 1 and 6 with K2 and its counting build
+built, `--only trace` phases 1 and 7 with the trace kernels built alone,
 `--only dense` phases 1 and 13 with K1 and the trace kernels built,
 `--only diff` phases 1 and 14 with the trace kernels built alone, `--only
 tools` phases 1 and 15 and `--only multi` phases 1 and 16 with K1 and K2
@@ -72,7 +73,18 @@ kernels built, where the host has 2 cards or more):
 6. K2's whole-path mode on stress_10k, 3 bounces: a short window at
    800x600 and K2 by shape over one recorded pass; a 1-pass accumulation
    at 200x150 against the plain version, with K2's time by shape, the
-   plain version's and the bound on that pass;
+   plain version's and the bound on that pass; then on menger_d2 (key
+   E's sponge at depth 2: 8,000 cubes in one group of the analytic pool)
+   at the viewer's 1280x1000, 3 bounces, through compile_scene and
+   Renderer.advance with nothing forced: the pool's size on the
+   `scene.compile` span, one whole-path K2 launch a tile call
+   (`k2_launch.whole_path_launches` = `launches` = passes x 20 tiles)
+   over four 8-pass windows with each window's rays/s, `whole_path=3` on
+   every `k2.launch` span, the inputs kept from the warm-up (`built`
+   False on every `k2.inputs` span, no `k2.schedule`, no `k2.sort`), K2
+   by shape
+   over one recorded pass, and a 1-pass accumulation at 160x125 against
+   the plain version;
 7. each trace kernel against its plain version on the card (K5 on
    colonnes under the trace protocol, testing/parity.py; K3a, K3b, K4a,
    K4b, K6 and K5 on cones and quads rows equal on 99.99% of rays, and
@@ -290,7 +302,7 @@ from montecarlo_pathtracing_tpu_torch.testing.parity import (
     assert_megakernel_protocol, assert_trace_protocol, cull_mesh_scene,
     fused_match, group_chunk_boxes, megakernel_match, opaque_mesh_scene,
     random_group, random_rays, trace_match)
-from montecarlo_pathtracing_tpu_torch.utils import transforms
+from montecarlo_pathtracing_tpu_torch.utils import profiling, transforms
 from montecarlo_pathtracing_tpu_torch.utils.image import read_png, tonemap
 
 K1_SOURCE = "montecarlo_pathtracing_tpu_torch/csrc/megakernel.cu"
@@ -1066,6 +1078,31 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
                 wall_pass_ms=wall_pass * 1e3, by_shape=by_shape)
 
 
+def _whole_path_vs_plain(dev, name, ws, hs, bounces, tile_rays, device):
+    """One pass of compiled scene `dev` at ws x hs through Renderer (K2,
+    whole path) against the same tiles through the plain version, under
+    the fused protocol with FUSED_FRAC_STRESS: (the renderer, max abs
+    error)."""
+    cfg_s = RenderConfig(width=ws, height=hs, nb_bounces=bounces,
+                         tile_rays=tile_rays, use_kernels=True, device=device)
+    rs = Renderer(dev, cfg_s)
+    img_k2 = rs.run(1)
+    acc = torch.zeros_like(rs._accs[0])
+    for t in range(rs._ntiles):
+        acc[t].add_(bk.raytrace_fused(
+            dev, rs._origin, rs._dirs[t], rs._tc[t], 0, nb_bounces=bounces,
+            refract_ind=cfg_s.refract_ind, date=cfg_s.date,
+            call=bk.fused_call_reference))
+    img_ref = rs.resolve(acc, 1)
+    off, err = fused_match(img_ref, img_k2)
+    print(f"K2 whole path {name} 1-pass K2 vs plain at {ws}x{hs}: "
+          f"off={off:.4f} (allowed {FUSED_FRAC_STRESS}) max_abs_err={err:.3e}",
+          flush=True)
+    assert_fused_protocol(img_ref, img_k2, f"{name} 1 pass",
+                          FUSED_FRAC_STRESS)
+    return rs, err
+
+
 def phase_k2_whole_path(device, w=800, h=600, bounces=3, window=4,
                         tile_rays=1 << 17, ws=200, hs=150):
     """K2's whole-path mode on stress_10k: a short window at w x h, K2 by
@@ -1100,23 +1137,8 @@ def phase_k2_whole_path(device, w=800, h=600, bounces=3, window=4,
     by_shape = _k2_by_shape(rec, 1, r._ntiles, f"stress_10k {w}x{h}")
 
     # a small accumulation against the plain version, and the bound
-    cfg_s = RenderConfig(width=ws, height=hs, nb_bounces=bounces,
-                         tile_rays=tile_rays, use_kernels=True, device=device)
-    rs = Renderer(dev, cfg_s)
-    img_k2 = rs.run(1)
-    acc = torch.zeros_like(rs._accs[0])
-    for t in range(rs._ntiles):
-        acc[t].add_(bk.raytrace_fused(
-            dev, rs._origin, rs._dirs[t], rs._tc[t], 0, nb_bounces=bounces,
-            refract_ind=cfg_s.refract_ind, date=cfg_s.date,
-            call=bk.fused_call_reference))
-    img_ref = rs.resolve(acc, 1)
-    off, err = fused_match(img_ref, img_k2)
-    print(f"K2 whole path stress_10k 1-pass K2 vs plain at {ws}x{hs}: "
-          f"off={off:.4f} (allowed {FUSED_FRAC_STRESS}) max_abs_err={err:.3e}",
-          flush=True)
-    assert_fused_protocol(img_ref, img_k2, "stress_10k 1 pass",
-                          FUSED_FRAC_STRESS)
+    rs, err = _whole_path_vs_plain(dev, "stress_10k", ws, hs, bounces,
+                                   tile_rays, device)
     rec_s = _record_pass(rs, 0)
     small = _k2_by_shape(rec_s, 1, rs._ntiles, f"stress_10k {ws}x{hs}")
     need, replay_ms = _k2_need(rec_s)
@@ -1127,6 +1149,95 @@ def phase_k2_whole_path(device, w=800, h=600, bounces=3, window=4,
           flush=True)
     return dict(by_shape=by_shape, small=small, bound_ms=bound_ms,
                 plain_ms=replay_ms, max_abs_err=err)
+
+
+def phase_k2_whole_menger(device, w=1280, h=1000, bounces=3, window=8,
+                          windows=4, ws=160, hs=125):
+    """K2's whole-path mode on menger_d2 (key E's sponge at depth 2,
+    8,010 prims) through compile_scene and Renderer.advance at the
+    viewer's defaults, nothing forced: the route, the pool's size on the
+    `scene.compile` span, one whole-path launch a tile call over
+    `windows` windows of `window` passes with each window's rays/s, the
+    `whole_path` attrs of the `k2.launch` spans and the inputs kept from
+    the warm-up, K2's time a pass over one recorded pass; then a 1-pass accumulation at
+    ws x hs against the plain version."""
+    profiling.take_spans()
+    profiling.enable_spans()
+    try:
+        dev = compile_scene(scenes.build("menger_d2"), device=device)
+        compiled = profiling.take_spans()
+    finally:
+        profiling.enable_spans(False)
+    attrs = [s.attrs for s in compiled if s.name == "scene.compile"]
+    if (mk.mega_eligible(dev) or not bk.fused_eligible(dev)
+            or dev.mesh_prim_index or len(dev.ana_groups) != 1
+            or attrs != [{"prims": 8010, "ana_groups": 1,
+                          "ana_chunks": dev.ana_groups[0][2]}]):
+        raise AssertionError(f"menger_d2 should take K2's whole path over "
+                             f"one pool group: {dev.ana_groups}, {attrs}")
+    cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
+                       passes_per_call=window, device=device)
+    r = Renderer(dev, cfg)
+    r.advance(window)                       # warm-up
+    rates = []
+    for _ in range(windows):
+        bk.k2_launch.launches = bk.k2_launch.whole_path_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.advance(r.nb_passes + window)
+        rates.append(w * h * window * bounces / (time.perf_counter() - t0))
+        if not (bk.k2_launch.launches == bk.k2_launch.whole_path_launches
+                == window * r._ntiles):
+            raise AssertionError(
+                f"menger_d2: {bk.k2_launch.launches} K2 launches, "
+                f"{bk.k2_launch.whole_path_launches} whole-path, want "
+                f"{window} x {r._ntiles} of each")
+    profiling.enable_spans()
+    try:
+        r.advance(r.nb_passes + 1)
+        spans = profiling.take_spans()
+    finally:
+        profiling.enable_spans(False)
+    got = [s.attrs.get("whole_path") for s in spans if s.name == "k2.launch"]
+    if got != [bounces] * r._ntiles:
+        raise AssertionError(f"menger_d2 k2.launch spans: {got}")
+    built = [s.attrs.get("built") for s in spans if s.name == "k2.inputs"]
+    if built != [False] * r._ntiles:
+        raise AssertionError(f"menger_d2 rebuilt its inputs: {built}")
+    if any(s.name in ("k2.sort", "k2.schedule") for s in spans):
+        raise AssertionError("menger_d2: a whole-path pass re-sorted or "
+                             "scheduled again")
+    img = r.image()
+    if not np.isfinite(img).all() or (img < 0).any():
+        raise AssertionError("menger_d2 image is not finite and >= 0")
+    print(f"K2 whole path: menger_d2 {w}x{h} {bounces} bounces, "
+          f"{dev.ana_groups[0][2]} pool chunks, {r._ntiles} tiles, one "
+          f"whole-path launch a tile call; rays/s over {windows} windows of "
+          f"{window} passes: " + ", ".join(f"{x:.6g}" for x in rates),
+          flush=True)
+    rec = _record_pass(r, r.nb_passes)
+    by_shape = _k2_by_shape(rec, 1, r._ntiles, f"menger_d2 {w}x{h}")
+
+    _, err = _whole_path_vs_plain(dev, "menger_d2", ws, hs, bounces,
+                                  cfg.tile_rays, device)
+    return dict(rates=rates, by_shape=by_shape, max_abs_err=err)
+
+
+def run_whole(name_power):
+    """Phase 6 (K2's whole-path mode on stress_10k and menger_d2)."""
+    res6 = phase_k2_whole_path("cuda")
+    print(f"[{name_power}] stress_10k whole path: K2 " + ", ".join(
+        f"{k} {v[1]:.4f}" for k, v in res6["by_shape"].items())
+          + " ms/pass at 800x600; at 200x150 " + ", ".join(
+        f"{k} {v[1]:.4f}" for k, v in res6["small"].items())
+          + f" ms/pass (bound {res6['bound_ms']:.4f} ms, plain "
+          f"{res6['plain_ms']:.1f} ms)", flush=True)
+    resm = phase_k2_whole_menger("cuda")
+    print(f"[{name_power}] menger_d2 whole path 1280x1000x3: K2 " + ", ".join(
+        f"{k} {v[1]:.4f}" for k, v in resm["by_shape"].items())
+          + " ms/pass; rays/s by window " + ", ".join(
+        f"{x:.6g}" for x in resm["rates"]), flush=True)
+    return res6, resm
 
 
 # --------------------------------------------------------------------------
@@ -4462,7 +4573,8 @@ def run_trace_parity(name_power):
 
 def main(argv=()) -> int:
     """With no arguments every phase; `--only k1` (phases 1-3 and K1's
-    windows, K1 built alone), `--only trace` (phases 1 and 7, the trace
+    windows, K1 built alone), `--only whole` (phases 1 and 6, K2 and
+    its counting build built), `--only trace` (phases 1 and 7, the trace
     kernels built alone), `--only dense` (phases 1 and 13, K1 and the
     trace kernels built), `--only diff` (phases 1 and 14, the trace
     kernels built alone), `--only tools` (phases 1 and 15, K1 and K2
@@ -4471,7 +4583,8 @@ def main(argv=()) -> int:
     a host of 2 cards or more; its kernels line too) run one part, for a
     quick look."""
     only = None
-    parts = ("k1", "trace", "dense", "diff", "tools", "multi", "multicard")
+    parts = ("k1", "whole", "trace", "dense", "diff", "tools", "multi",
+             "multicard")
     if argv:
         if len(argv) != 2 or argv[0] != "--only" or argv[1] not in parts:
             print(f"usage: chip_smoke.py [--only {'|'.join(parts)}]",
@@ -4486,6 +4599,9 @@ def main(argv=()) -> int:
     if only == "k1":
         phase_builds(["megakernel"])
         run_k1(name_power)
+    elif only == "whole":
+        phase_builds(["bounce_kernel"], [("bounce_kernel", kernels.K2_COUNTS)])
+        run_whole(name_power)
     elif only == "trace":
         phase_builds(["trace_kernels"])
         run_trace_parity(name_power)
@@ -4526,13 +4642,7 @@ def main(argv=()) -> int:
               if k != "auto") + f"; bound {res2['bound_ms']:.4f} ms, "
           f"{res2['bound_by']}); plain version {res2['plain_ms']:.1f} ms/pass",
           flush=True)
-    res6 = phase_k2_whole_path("cuda")
-    print(f"[{name_power}] stress_10k whole path: K2 " + ", ".join(
-        f"{k} {v[1]:.4f}" for k, v in res6["by_shape"].items())
-          + " ms/pass at 800x600; at 200x150 " + ", ".join(
-        f"{k} {v[1]:.4f}" for k, v in res6["small"].items())
-          + f" ms/pass (bound {res6['bound_ms']:.4f} ms, plain "
-          f"{res6['plain_ms']:.1f} ms)", flush=True)
+    run_whole(name_power)
 
     k4b, behind = run_trace_parity(name_power)
     trace = {"K4b": k4b}

@@ -17,7 +17,9 @@ one launch per bounce; finished lanes are parked outside every box, and
 from bounce 1 on the wavefront is re-sorted by direction octant and
 origin Morton code (ops/sort_rays) so that each tile is a tight bundle.
 Scenes with no mesh (large analytic only) run the whole path in one
-launch.
+launch; its tables, schedule and wavefront but for the pass's seed word
+depend on the tile's rays alone, so a pass function's `MegaMemo` keeps
+them across passes.
 
 Three functions compute one K2 call from the same `FusedInputs` and
 wavefront state:
@@ -61,7 +63,7 @@ from ..utils.profiling import span
 from .megakernel import (
     MEGA_CULL_MIN_PRIMS, MEGA_MAX_PRIMS, MEGA_SUPER, _FMAX, _bounce_step,
     _fold_table, _mega_meta, _mega_super_boxes, _mega_table, _new_win,
-    _shading_normal, _win_result,
+    _scene_tensors, _shading_normal, _win_result,
 )
 
 TILE = 1024        # rays per row of the super schedule (8 x 128 on the TPU)
@@ -719,9 +721,11 @@ def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None,
               shape: Optional[int] = None):
     """Launch K2 on the current CUDA stream; it updates stf and sti in
     place. Raises on bad inputs and on a refused launch; counts each
-    launch in `k2_launch.launches`. `shape` forces the lanes per ray (one
-    of SHAPES) or, with None, lets the kernel choose from the rays to scan
-    (k2_shape), a device scalar computed here with no host sync.
+    launch in `k2_launch.launches`, and those of whole-path mode
+    (whole_path > 0) also in `k2_launch.whole_path_launches`. `shape`
+    forces the lanes per ray (one of SHAPES) or, with None, lets the
+    kernel choose from the rays to scan (k2_shape), a device scalar
+    computed here with no host sync.
     `work`, an int64 [5] CUDA tensor, if given, gets the launch's
     ray-triangle tests, ray-box tests, large-group ray-prim tests, traces
     and the lane slots its warps spent on chunk folds added to it, from
@@ -763,10 +767,13 @@ def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None,
         raise RuntimeError(
             f"K2 launch failed: {lib.fused_error_string(err).decode()}")
     kernels.count_launch(k2_launch, stf.device)
+    if whole_path:
+        k2_launch.whole_path_launches += 1
 
 
 k2_launch.launches = 0
 k2_launch.launches_on = collections.Counter()
+k2_launch.whole_path_launches = 0
 
 
 def fused_call(inp: FusedInputs, stf, sti, whole_path: int):
@@ -777,51 +784,107 @@ def fused_call(inp: FusedInputs, stf, sti, whole_path: int):
         k2_launch(inp, stf, sti, whole_path)
 
 
+def _fused_scene_tensors(scene):
+    """The scene tensors that `fused_inputs` and `_schedules` read."""
+    return (*_scene_tensors(scene), scene.inv_transfo, scene.mesh_transfo,
+            *scene.mesh_chunk_bb, *scene.mesh_super_bb, scene.tri_chunks,
+            scene.ana_chunks, scene.ana_chunk_bb, scene.ana_super_bb)
+
+
+def _wavefront(O, D, screen_tc):
+    """A tile call's wavefront before its pass: (stf [15, M] at the
+    camera; sti [4, M]: not done, the seed words bits(u) and bits(v) of
+    rng.srand_soa, and 0 where `_set_pass` writes the pass's word; the
+    lanes' order; n)."""
+    dev = D.device
+    n = D.shape[0]
+    m = -(-n // TILE) * TILE
+    dn = D / torch.linalg.vector_norm(D, dim=-1, keepdim=True)
+    z = torch.zeros((m,), dtype=_F32, device=dev)
+    dx, dy, dz = z.clone(), z.clone(), z + 1.0
+    u, v = z.clone(), z.clone()
+    dx[:n], dy[:n], dz[:n] = dn[:, 0], dn[:, 1], dn[:, 2]
+    u[:n], v[:n] = screen_tc[:, 0], screen_tc[:, 1]
+    o3 = torch.as_tensor(O, dtype=_F32, device=dev).reshape(3)
+    stf = torch.stack([z + o3[0], z + o3[1], z + o3[2], dx, dy, dz,
+                       z + 0.8, z + 0.8, z + 0.8,   # attenu (:106-107)
+                       z, z, z, z, z, z])
+    int_t = torch.int64 if dev.type == "cpu" else torch.int32
+    bu = _from_u32(_rng.float_bits(u), int_t)
+    zi = torch.zeros_like(bu)
+    sti = torch.stack([zi, bu, zi, _from_u32(_rng.float_bits(v), int_t)])
+    return stf, sti, torch.arange(m, device=dev), n
+
+
+def _set_pass(sti, pass_index, date):
+    """Write the pass's seed word (rng.seed_y, in sti's dtype) into sti."""
+    y = _rng.seed_y(pass_index, date)
+    if sti.dtype == torch.int32 and y >= 2 ** 31:
+        y -= 2 ** 32
+    sti[2].fill_(y)
+
+
+def _whole_path_inputs(scene, O, D, screen_tc, refract_ind, bounces):
+    """(`_wavefront`'s stf, sti, lanes and n, the inputs with their
+    schedule): what a whole-path tile call needs besides its pass."""
+    with span("k2.wavefront"):
+        stf, sti, lane, n = _wavefront(O, D, screen_tc)
+    inp = fused_inputs(scene, refract_ind)
+    with span("k2.schedule", whole_path=bounces):
+        inp = with_schedule(inp, scene, stf)
+    return stf, sti, lane, n, inp
+
+
 def raytrace_fused(scene, O, D, screen_tc, pass_index: int, *,
                    nb_bounces: int, refract_ind, date=0.0,
                    sort_rays: bool = True, whole_path: bool | None = None,
-                   call=None):
+                   call=None, mega_memo=None):
     """Fused per-bounce route of models.montecarlo.raytrace, for mesh and
     large analytic scenes. O: [3] camera origin, D: [N,3] ray directions
     (normalized here), screen_tc: [N,2]. Returns rgb [N,3]. The RNG
     schedule is bit-identical to the reference's; float results match to
     a few ulp, winners up to exact distance ties. `call` runs one K2 call
     (default `fused_call`; the parity checks pass `fused_call_reference`
-    to run the plain version on the card)."""
+    to run the plain version on the card). mega_memo (a
+    megakernel.MegaMemo), if given, keeps a whole-path call's tables,
+    schedule and wavefront (all but the pass's seed word) across calls
+    (the `k2.inputs` span covers the lookup or build, with attr
+    `built`); the wavefront mode builds every call."""
     call = fused_call if call is None else call
     dev = D.device
-    n = D.shape[0]
-    m = -(-n // TILE) * TILE
-    with span("k2.wavefront"):
-        dn = D / torch.linalg.vector_norm(D, dim=-1, keepdim=True)
-        z = torch.zeros((m,), dtype=_F32, device=dev)
-        dx, dy, dz = z.clone(), z.clone(), z + 1.0
-        u, v = z.clone(), z.clone()
-        dx[:n], dy[:n], dz[:n] = dn[:, 0], dn[:, 1], dn[:, 2]
-        u[:n], v[:n] = screen_tc[:, 0], screen_tc[:, 1]
-        o3 = torch.as_tensor(O, dtype=_F32, device=dev).reshape(3)
-        s0, s1, s2 = _rng.srand_soa(u, v, pass_index, date)
-        stf = torch.stack([z + o3[0], z + o3[1], z + o3[2], dx, dy, dz,
-                           z + 0.8, z + 0.8, z + 0.8,   # attenu (:106-107)
-                           z, z, z, z, z, z])
-        int_t = torch.int64 if dev.type == "cpu" else torch.int32
-        sti = torch.stack([_from_u32(x, int_t)
-                           for x in (torch.zeros_like(s0), s0, s1, s2)])
-        lane = torch.arange(m, device=dev)
-    with span("k2.inputs"):
-        inp = fused_inputs(scene, refract_ind)
     if whole_path is None:
         # mesh scenes want the inter-bounce re-sort; large analytic scenes
         # keep the whole path in one launch
         whole_path = not scene.mesh_prim_index
+    bounces = int(nb_bounces) if whole_path else 0
+    if bounces > 0:
+        def build():
+            return _whole_path_inputs(scene, O, D, screen_tc, refract_ind,
+                                      bounces)
 
-    if whole_path:
-        if nb_bounces > 0:
-            with span("k2.schedule", bounce=0):
-                inp = with_schedule(inp, scene, stf)
-            with span("k2.launch", bounce=0, device=dev):
-                call(inp, stf, sti, int(nb_bounces))
+        with span("k2.inputs") as sp:
+            if mega_memo is None:
+                (stf, sti, lane, n, inp), built = build(), True
+            else:
+                (stf, sti, lane, n, inp), built = mega_memo.whole_path(
+                    scene, O, D, screen_tc, refract_ind,
+                    _fused_scene_tensors(scene), build)
+            sp.set(built=built)
+        with span("k2.wavefront"):
+            # K2 updates the wavefront in place: a kept one stays
+            stf, sti = stf.clone(), sti.clone()
+            _set_pass(sti, pass_index, date)
     else:
+        with span("k2.wavefront"):
+            stf, sti, lane, n = _wavefront(O, D, screen_tc)
+            _set_pass(sti, pass_index, date)
+        with span("k2.inputs"):
+            inp = fused_inputs(scene, refract_ind)
+
+    if bounces > 0:
+        with span("k2.launch", whole_path=bounces, device=dev):
+            call(inp, stf, sti, bounces)
+    elif not whole_path:
         sort_lo = scene.prim_bb_min.amin(dim=0)
         sort_hi = scene.prim_bb_max.amax(dim=0)
         park = kernels.host_tensor([0.0, 0.0, PARK_Z, 0.0, 0.0, 1.0], _F32,
@@ -847,6 +910,6 @@ def raytrace_fused(scene, O, D, screen_tc, pass_index: int, *,
     with span("k2.gather"):
         # bounce-cap exhaustion returns black (:178)
         done = sti[0] != 0
-        out = torch.zeros((3, m), dtype=_F32, device=dev)
+        out = torch.zeros((3, stf.shape[1]), dtype=_F32, device=dev)
         out[:, lane] = torch.where(done[None, :], stf[12:15], 0.0)
         return out.T[:n]

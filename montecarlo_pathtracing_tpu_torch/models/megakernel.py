@@ -801,13 +801,14 @@ def _stamp(*objs):
 
 
 class MegaMemo:
-    """K1's inputs kept across the passes of one pass function
-    (parallel/sharding.make_sharded_pass makes one each): a tile's inputs
-    are built on its first call and reused on every later call that
-    passes the same scene, origin, ray and screen-coordinate objects,
-    none of them (nor the scene tensors the tables read) modified in
-    place since, and the same IOR. Anything else rebuilds. Only the
-    pass's seed, which K1 takes as a scalar, changes between passes.
+    """K1's inputs, and K2's in whole-path mode, kept across the passes
+    of one pass function (parallel/sharding.make_sharded_pass makes one
+    each): a tile's inputs are built on its first call and reused on
+    every later call that passes the same scene, origin, ray and
+    screen-coordinate objects, none of them (nor the scene tensors the
+    tables read) modified in place since, and the same IOR. Anything
+    else rebuilds. Only the pass's seed, which K1 takes as a scalar and
+    K2 as one row of its wavefront state, changes between passes.
 
     An entry is keyed by id() with a weakref finalizer evicting it when
     its object dies (models/debug_views' idiom): one per ray tensor,
@@ -819,9 +820,10 @@ class MegaMemo:
     def __init__(self):
         self._scenes = {}   # id(scene) -> (stamp, pinned, part)
         self._rays = {}     # id(D) -> (stamp, pinned, MegaInputs)
+        self._paths = {}    # id(D) -> (stamp, pinned, K2's inputs)
 
     def __len__(self):
-        return len(self._rays)
+        return len(self._rays) + len(self._paths)
 
     def _held(self, name, obj, stamp):
         """The value kept for `obj` in the table `name` if its stamp is
@@ -859,6 +861,21 @@ class MegaMemo:
             return inp, False
         inp = _build(scene, part, O, D, screen_tc, refract_ind)
         self._keep("_rays", D, stamp, (part, screen_tc, O), inp)
+        return inp, True
+
+    def whole_path(self, scene, O, D, screen_tc, refract_ind, tensors,
+                   build):
+        """(K2's whole-path inputs for these rays, True if built by this
+        call): `build()`'s value, kept like K1's inputs under the ray
+        tensor; `tensors` are the scene tensors that `build` reads
+        (models/bounce_kernel.raytrace_fused)."""
+        stamp = (D.device, id(scene), _stamp(*tensors),
+                 _stamp(D, screen_tc, O), float(refract_ind))
+        inp = self._held("_paths", D, stamp)
+        if inp is not None:
+            return inp, False
+        inp = build()
+        self._keep("_paths", D, stamp, (tensors, screen_tc, O), inp)
         return inp, True
 
 

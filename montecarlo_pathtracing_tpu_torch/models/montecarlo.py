@@ -265,7 +265,8 @@ def raytrace(scene, O, D, screen_tc, pass_index: int, *, nb_bounces: int,
     the dense route runs: no padding, and nondiff_trace and sort_rays
     resolve to False (the rays stay in their order, the trace in the
     backward pass). mega_memo (a megakernel.MegaMemo) keeps the
-    megakernel's inputs across calls; the other routes ignore it.
+    megakernel's inputs across calls, and the fused route's in
+    whole-path mode; the other routes ignore it.
     """
     if nondiff_trace is None:
         nondiff_trace = use_kernels and detach_sampling
@@ -282,7 +283,7 @@ def raytrace(scene, O, D, screen_tc, pass_index: int, *, nb_bounces: int,
     if use_fused:
         return raytrace_fused(
             scene, O, D, screen_tc, pass_index, nb_bounces=nb_bounces,
-            refract_ind=refract_ind, date=date)
+            refract_ind=refract_ind, date=date, mega_memo=mega_memo)
     if sort_rays is None:
         sort_rays = (bool(use_kernels) and not detach_sampling
                      and nb_bounces > 1)

@@ -110,8 +110,9 @@ def route_keywords(integrator, route: dict | None) -> dict:
 def _route(integrator, route: dict | None) -> dict:
     """`route_keywords` with a new models.megakernel.MegaMemo, for the
     integrators that name `mega_memo`: a pass function's memo, which
-    builds K1's inputs once per tile and shard and reuses them on every
-    later pass that hands it the same objects."""
+    builds K1's inputs (and K2's in whole-path mode) once per tile and
+    shard and reuses them on every later pass that hands it the same
+    objects."""
     return route_keywords(integrator, {**(route or {}),
                                        "mega_memo": MegaMemo()})
 
@@ -148,9 +149,10 @@ def make_sharded_pass(mesh: list, integrator_name: str = "montecarlo", *,
     dict(use_kernels=True, use_megakernel=True)), filtered by its
     signature. Every route, the kernels' included, runs whole on each
     shard: the production layout, and bit-identical to one device on the
-    per-ray routes. The megakernel route keeps each tile's and shard's
-    inputs for the pass function's life, in `fn.mega_memo` (`_route`;
-    None for integrators that take no memo)."""
+    per-ray routes. The megakernel route, and the fused route in
+    whole-path mode, keep each tile's and shard's inputs for the pass
+    function's life, in `fn.mega_memo` (`_route`; None for integrators
+    that take no memo)."""
     integrator = get_integrator(integrator_name)
     kw = _route(integrator, route)
     replicas = _replicator(mesh)
@@ -179,8 +181,8 @@ def make_sample_sharded_pass(mesh: list, integrator_name: str = "montecarlo",
     on its device; the partial images are summed onto the first device
     in shard order. One call advances the accumulator by len(mesh)
     passes (`fn.n_passes_per_call`). Returns fn(scene, dirs, tc, origin,
-    base_pass, refract_ind) -> the summed rgb. The megakernel route keeps
-    its inputs in `fn.mega_memo`, as make_sharded_pass's does: shards
+    base_pass, refract_ind) -> the summed rgb. The kernel routes keep
+    their inputs in `fn.mega_memo`, as make_sharded_pass's does: shards
     that share a device share them."""
     integrator = get_integrator(integrator_name)
     kw = _route(integrator, route)

@@ -158,7 +158,7 @@ class Renderer:
         shard_tc = [self._tc[:, lo:hi].to(dev).contiguous()
                     for dev, lo, hi in self._shards()]
         # each tile's (dirs, tc) shards, the same objects on every pass:
-        # the pass function keeps the megakernel's inputs while it is
+        # the pass function keeps the kernel routes' inputs while it is
         # handed the same tensors (models/megakernel.MegaMemo)
         self._tile_rays = [([d[t] for d in shard_dirs],
                             [c[t] for c in shard_tc])

@@ -210,8 +210,11 @@ def compile_scene(scene: ScenePrimitives, *, analytic_chunk: int = 64,
                   device="cuda") -> DeviceScene:
     """finalize() analog: emissive sort -> dense arrays on `device` (the
     card unless the caller names the CPU)."""
-    with span("scene.compile"):
-        return _compile(scene, analytic_chunk, tri_chunk, flat_face, device)
+    with span("scene.compile") as sp:
+        dev = _compile(scene, analytic_chunk, tri_chunk, flat_face, device)
+        sp.set(prims=dev.nb_prims, ana_groups=len(dev.ana_groups),
+               ana_chunks=sum(g[2] for g in dev.ana_groups))
+        return dev
 
 
 def _compile(scene, analytic_chunk, tri_chunk, flat_face, device):

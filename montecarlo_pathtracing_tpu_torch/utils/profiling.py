@@ -135,10 +135,11 @@ def take_spans() -> list:
     `parent` (the index of the enclosing span in the same list, -1 for
     none), `request` (the sequence number of the outermost span it lies
     in: one per Renderer.advance call, one per set-up call) and `attrs`
-    (pass_index, tile, bounce, device, rank or library, as the call site
-    gives them). Take between requests: a span still open when taken has
-    `end` None, and the spans entered inside it after the take name no
-    parent."""
+    (pass_index, tile, bounce or whole_path, device, rank, library, or
+    the compiled scene's prims, ana_groups and ana_chunks, as the call
+    site gives them). Take between requests: a span still open when taken
+    has `end` None, and the spans entered inside it after the take name
+    no parent."""
     rec = _recorder
     out = list(map(_Span._make, zip(rec.names, rec.starts, rec.ends,
                                     rec.parents, rec.reqs, rec.attrs)))

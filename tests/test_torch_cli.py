@@ -3,7 +3,8 @@
 render/renderer.render_scene) and utils/profiling against the JAX
 package's, on the CPU.
 
-  - `scenes` prints the JAX CLI's list; `python -m
+  - `scenes` prints the JAX CLI's list, with the port's `menger_d2`
+    after `menger`; `python -m
     montecarlo_pathtracing_tpu_torch scenes` runs in a subprocess;
   - `render --cpu` at 16x12, 2 spp, 3 bounces writes the PNG of the port
     Renderer's resolve, and within 2/255 of the JAX CLI's PNG on more
@@ -61,7 +62,11 @@ def test_scenes_lists_what_jax_lists(capsys):
     assert cli.main(["scenes"]) == 0
     got = _out(capsys)
     assert jcli.main(["scenes"]) == 0
-    assert got == _out(capsys) and "box_diffuse" in got
+    want = _out(capsys)
+    # and the port's own `menger_d2` (key E's sponge one level deeper)
+    # after `menger`
+    want.insert(want.index("menger") + 1, "menger_d2")
+    assert got == want and "box_diffuse" in got
 
 
 def test_python_m_scenes_in_a_subprocess():
