@@ -1,13 +1,13 @@
 """GPU smoke of the PyTorch/CUDA port: build every kernel, hold each one
 against its plain PyTorch version, and drive every ported path once.
 
-    python3 chip_smoke.py [--only k1|whole|trace|dense|diff|tools|multi|multicard]
+    python3 chip_smoke.py [--only k1|k2|whole|trace|dense|diff|tools|multi|multicard]
 
 Needs one CUDA GPU (sm_90a) and nvcc; fails with a non-zero exit code,
 and prints no result, without them. Phases (about 13 minutes in all on
 an H100, the builds included; `--only k1` runs phases 1-3 with K1 built
-alone, `--only whole` phases 1 and 6 with K2 and its counting build
-built, `--only trace` phases 1 and 7 with the trace kernels built alone,
+alone, `--only k2` phases 1, 4 and 5 and `--only whole` phases 1 and 6
+with K2 and its counting build built, `--only trace` phases 1 and 7 with the trace kernels built alone,
 `--only dense` phases 1 and 13 with K1 and the trace kernels built,
 `--only diff` phases 1 and 14 with the trace kernels built alone, `--only
 tools` phases 1 and 15 and `--only multi` phases 1 and 16 with K1 and K2
@@ -55,11 +55,17 @@ kernels built, where the host has 2 cards or more):
    mesh_demo at IOR 1.3 (transparent: the scheduled outer walk and the
    schedule-free re-trace), the opaque mesh fixture with flat faces, a 4200-prim scene_stress (large analytic groups; 1.5% allowed)
    and a mesh scene with a culled 88-prim table; and nb_bounces=0 ->
-   black in both modes and shapes;
+   black in both modes and shapes; before these, K2's schedule kernel
+   (bk.k2_schedule_launch) against `_schedules` on the card on every K2
+   call of those scenes in both modes (the groups' segments bit for bit,
+   the mesh segments' bounds within 1 ulp or 1e-6 and their orders equal
+   but for near-ties);
 5. K2's main path at full size: mesh_demo at 800x600, 8 bounces, 8
    passes per call, tile_rays 1<<17, through compile_scene and
-   Renderer.advance; K2's launch count over one 8-pass window (passes x
-   tiles x 8); the image finite and non-negative; device busy and idle
+   Renderer.advance; K2's launch count and its schedule kernel's over one
+   8-pass window (passes x tiles x 8 each); the image finite and
+   non-negative; the schedule kernel against `_schedules` on every call of
+   a recorded pass (8 tiles x 8 bounces); device busy and idle
    share under torch.profiler; K2's time per launch, per pass and by
    bounce with the rays in flight (CUDA events over one recorded pass,
    the card kept ahead of the host, the median of 5; and once with
@@ -68,7 +74,7 @@ kernels built, where the host has 2 cards or more):
    share and the card's SM clock and power while timed; its bound from
    the work the pass's inputs need (the plain version replayed on the
    recorded launches with bk.K2Need); the host's per-bounce sort and
-   schedules; a 2-pass accumulation of K2 against the plain version's at
+   schedules (the schedule kernel's launch beside the plain torch ops); a 2-pass accumulation of K2 against the plain version's at
    full size; rays/s;
 6. K2's whole-path mode on stress_10k, 3 bounces: a short window at
    800x600 and K2 by shape over one recorded pass; a 1-pass accumulation
@@ -78,12 +84,13 @@ kernels built, where the host has 2 cards or more):
    at the viewer's 1280x1000, 3 bounces, through compile_scene and
    Renderer.advance with nothing forced: the pool's size on the
    `scene.compile` span, one whole-path K2 launch a tile call
-   (`k2_launch.whole_path_launches` = `launches` = passes x 20 tiles)
+   (`k2_launch.whole_path_launches` = `launches` = passes x 20 tiles),
+   one schedule launch a tile in the warm-up and none after,
    over four 8-pass windows with each window's rays/s, `whole_path=3` on
    every `k2.launch` span, the inputs kept from the warm-up (`built`
-   False on every `k2.inputs` span, no `k2.schedule`, no `k2.sort`), K2
-   by shape
-   over one recorded pass, and a 1-pass accumulation at 160x125 against
+   False on every `k2.inputs` span, no `k2.schedule`, no `k2.sort`), the
+   schedule kernel against `_schedules` on a recorded pass's 20, K2 by
+   shape over one recorded pass, and a 1-pass accumulation at 160x125 against
    the plain version;
 7. each trace kernel against its plain version on the card (K5 on
    colonnes under the trace protocol, testing/parity.py; K3a, K3b, K4a,
@@ -841,6 +848,94 @@ def _record_pass(r, pass_index):
     return rec
 
 
+# the schedule kernel against _schedules on the card: its mesh segments'
+# 3x3 products may sum in another order than cuBLAS's, so an entry bound
+# may be an ulp or 1e-6 (relative to max(1, |bound|)) off, far inside the
+# schedule's 1e-4 shrink and margin; the large and small groups' segments
+# take the same rounded ops in the same order as the torch ops
+SCHED_TOL = 1e-6
+
+
+def _schedule_vs_plain(what, dev, calls):
+    """K2's schedule kernel (bk.k2_schedule_launch) against `_schedules`
+    run on the same card, on each recorded call's (inp, stf): the route's
+    own schedule in inp bit for bit (the kernel is deterministic); the
+    large and small groups' segments bit for bit, entries and orders; the
+    mesh segments' entries within 1 ulp or SCHED_TOL, and their orders
+    equal wherever no other entry of the tile lies within 4 ulps or
+    SCHED_TOL (tests/test_torch_bounce_kernel.py's rule). Prints and
+    returns (entries, mesh entries, mesh entries bit-equal, largest mesh
+    error relative to max(1, |bound|))."""
+    n = n_mesh = n_bits = 0
+    worst = 0.0
+    for inp, stf in calls:
+        ref_o, ref_e = bk._schedules(dev, stf[0:3], stf[3:6])
+        got_o, got_e = bk.k2_schedule_launch(inp, stf)
+        if not (torch.equal(got_o, inp.ordr)
+                and torch.equal(_bits_t(got_e), _bits_t(inp.entr))):
+            raise AssertionError(f"{what}: the schedule kernel gave another "
+                                 f"schedule on the same state")
+        ro, go = ref_o[:, 0].cpu().numpy(), got_o[:, 0].cpu().numpy()
+        re_, ge = ref_e[:, 0].cpu().numpy(), got_e[:, 0].cpu().numpy()
+        if go.shape != ro.shape or go.dtype != ro.dtype:
+            raise AssertionError(f"{what}: schedule {go.shape} {go.dtype}, "
+                                 f"plain {ro.shape} {ro.dtype}")
+        ms = inp.mesh_stot
+        if not (np.array_equal(ge[:, ms:].view(np.int32),
+                               re_[:, ms:].view(np.int32))
+                and np.array_equal(go[:, ms:], ro[:, ms:])):
+            raise AssertionError(f"{what}: a large or small group's segment "
+                                 f"differs from the plain version's")
+        n += re_.size
+        if ms == 0:
+            continue
+        e, g = re_[:, :ms].astype(np.float64), ge[:, :ms].astype(np.float64)
+        ulps = np.abs(re_[:, :ms].view(np.int32).astype(np.int64)
+                      - ge[:, :ms].view(np.int32).astype(np.int64))
+        scale = np.maximum(1.0, np.abs(e))
+        err = np.abs(g - e) / scale
+        if not ((ulps <= 1) | (err <= SCHED_TOL)).all():
+            raise AssertionError(f"{what}: a mesh entry bound {err.max():.3e}"
+                                 f" off the plain version's")
+        near = np.abs(e[:, :, None] - e[:, None, :]) <= np.maximum(
+            4 * np.spacing(np.abs(e).astype(np.float32))[:, :, None],
+            SCHED_TOL * scale[:, :, None])
+        clear = near.sum(axis=2) == 1
+        if not np.array_equal(go[:, :ms][clear], ro[:, :ms][clear]):
+            raise AssertionError(f"{what}: a mesh segment's order differs "
+                                 f"where its bounds have no near-tie")
+        n_mesh += e.size
+        n_bits += int((ulps == 0).sum())
+        worst = max(worst, float(err.max()))
+    print(f"schedule kernel vs plain, {what}: {len(calls)} schedules, {n} "
+          f"entries; mesh entries {n_bits} of {n_mesh} bit-equal, largest "
+          f"error {worst:.3e} of max(1, |bound|); group segments bit-equal",
+          flush=True)
+    return n, n_mesh, n_bits, worst
+
+
+def phase_schedule_parity(device, w=64, h=48, bounces=4):
+    """The schedule kernel against `_schedules` on the card on each K2
+    case's recorded K2 calls through raytrace_fused (both modes): mesh
+    instances, flat faces, large groups, and a culled small table
+    (cull_mesh, inp.cull set)."""
+    o, d, tc = _rays(device, w, h)
+    for name, ior, _frac in K2_CASES:
+        dev = build_scene(name, device)
+        for whole in (False, True):
+            calls = []
+
+            def record(inp, stf, sti, whole_path):
+                calls.append((inp, stf.clone()))
+                bk.fused_call(inp, stf, sti, whole_path)
+
+            bk.raytrace_fused(dev, o, d, tc, 3, nb_bounces=bounces,
+                              refract_ind=ior, whole_path=whole, call=record)
+            _schedule_vs_plain(
+                f"{name} {'whole path' if whole else 'wavefront'} "
+                f"cull_small={bk.cull_small(dev)}", dev, calls)
+
+
 def _time_launches(rec, shape=None, reps=5, count=True, ahead=True):
     """K2 over the recorded calls of one pass in the given shape (None:
     the kernel's choice), by CUDA events around each launch (_timed),
@@ -985,16 +1080,18 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
     r.advance(2)                            # warm-up
     warm_s = time.perf_counter() - t0
 
-    bk.k2_launch.launches = 0
+    bk.k2_launch.launches = bk.k2_schedule_launch.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     r.advance(2 + window)                   # synchronizes before returning
     window_s = time.perf_counter() - t0
     launches = bk.k2_launch.launches
-    if launches != window * r._ntiles * bounces:
-        raise AssertionError(f"K2 launched {launches} times in the window, "
-                             f"want {window} passes x {r._ntiles} tiles x "
-                             f"{bounces} bounces")
+    scheduled = bk.k2_schedule_launch.launches
+    if launches != window * r._ntiles * bounces or scheduled != launches:
+        raise AssertionError(f"K2 launched {launches} times and its schedule "
+                             f"kernel {scheduled} in the window, want "
+                             f"{window} passes x {r._ntiles} tiles x "
+                             f"{bounces} bounces of each")
     img = r.image()
     if img.shape != (h, w, 3) or not np.isfinite(img).all() \
             or (img < 0).any():
@@ -1003,7 +1100,7 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
     print(f"K2 main path: mesh_demo {w}x{h} {bounces} bounces, "
           f"{r._ntiles} tiles of {r._tile} rays, warm-up {warm_s:.3f} s, "
           f"{window}-pass window {window_s:.4f} s, K2 launches {launches}, "
-          f"image mean {img.mean():.5f}, {rays_per_s:.6g} rays/s", flush=True)
+          f"schedule launches {scheduled}, image mean {img.mean():.5f}, {rays_per_s:.6g} rays/s", flush=True)
 
     prof_passes = 2
     busy, k2_dev = _device_seconds(
@@ -1019,6 +1116,8 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
     # K2 alone, by CUDA events over one recorded pass's launches, in the
     # shapes the wrapper chose and in each shape forced
     rec = _record_pass(r, r.nb_passes)
+    _schedule_vs_plain(f"mesh_demo {w}x{h}, {r._ntiles} tiles x {bounces} "
+                       f"bounces", dev, [(x[0], x[1]) for x in rec])
     by_shape = _k2_by_shape(rec, bounces, r._ntiles, "mesh_demo")
     ms_launch, ms_pass = by_shape["auto"][:2]
     need, replay_ms = _k2_need(rec)
@@ -1028,7 +1127,8 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
           f"FP32 operations, {nbytes} bytes); plain version on the same "
           f"launches {replay_ms:.1f} ms", flush=True)
 
-    # the host's share: the per-bounce re-sort and schedules, each timed
+    # the host's share: the per-bounce re-sort and schedules (the schedule
+    # kernel's launch, and the plain torch ops it replaced), each timed
     # alone on a bounce-1 state of tile 0 (host clock, synchronized)
     inp, stf, sti, _ = rec[1]
     lo, hi = dev.prim_bb_min.amin(dim=0), dev.prim_bb_max.amax(dim=0)
@@ -1048,10 +1148,12 @@ def phase_k2_main(device, w=800, h=600, bounces=8, window=8,
 
     sort_ms = timed(sort_once)
     sched_ms = timed(lambda: bk.with_schedule(inp, dev, stf))
+    plain_sched_ms = timed(lambda: bk._schedules(dev, stf[0:3], stf[3:6]))
     host_pass = r._ntiles * ((bounces - 1) * sort_ms + bounces * sched_ms)
     print(f"K2 main path host: re-sort {sort_ms:.4f} ms and schedules "
-          f"{sched_ms:.4f} ms per (tile, bounce), {host_pass:.3f} ms per "
-          f"pass of {wall_pass * 1e3:.3f} ms wall", flush=True)
+          f"{sched_ms:.4f} ms (the kernel's launch; the plain torch ops "
+          f"{plain_sched_ms:.4f} ms) per (tile, bounce), {host_pass:.3f} ms "
+          f"per pass of {wall_pass * 1e3:.3f} ms wall", flush=True)
 
     # K2 through the renderer vs the plain version on the same tiles
     r2 = Renderer(dev, cfg)
@@ -1178,7 +1280,12 @@ def phase_k2_whole_menger(device, w=1280, h=1000, bounces=3, window=8,
     cfg = RenderConfig(width=w, height=h, nb_bounces=bounces,
                        passes_per_call=window, device=device)
     r = Renderer(dev, cfg)
+    bk.k2_schedule_launch.launches = 0
     r.advance(window)                       # warm-up
+    if bk.k2_schedule_launch.launches != r._ntiles:
+        raise AssertionError(f"menger_d2: {bk.k2_schedule_launch.launches} "
+                             f"schedule launches in the warm-up, want one "
+                             f"a tile ({r._ntiles})")
     rates = []
     for _ in range(windows):
         bk.k2_launch.launches = bk.k2_launch.whole_path_launches = 0
@@ -1192,6 +1299,10 @@ def phase_k2_whole_menger(device, w=1280, h=1000, bounces=3, window=8,
                 f"menger_d2: {bk.k2_launch.launches} K2 launches, "
                 f"{bk.k2_launch.whole_path_launches} whole-path, want "
                 f"{window} x {r._ntiles} of each")
+    if bk.k2_schedule_launch.launches != r._ntiles:
+        raise AssertionError(f"menger_d2: the schedule kernel ran in the "
+                             f"windows ({bk.k2_schedule_launch.launches} "
+                             f"launches since the warm-up's start)")
     profiling.enable_spans()
     try:
         r.advance(r.nb_passes + 1)
@@ -1216,11 +1327,31 @@ def phase_k2_whole_menger(device, w=1280, h=1000, bounces=3, window=8,
           f"{window} passes: " + ", ".join(f"{x:.6g}" for x in rates),
           flush=True)
     rec = _record_pass(r, r.nb_passes)
+    _schedule_vs_plain(f"menger_d2 {w}x{h} whole path, {r._ntiles} tiles",
+                       dev, [(x[0], x[1]) for x in rec])
     by_shape = _k2_by_shape(rec, 1, r._ntiles, f"menger_d2 {w}x{h}")
 
     _, err = _whole_path_vs_plain(dev, "menger_d2", ws, hs, bounces,
                                   cfg.tile_rays, device)
     return dict(rates=rates, by_shape=by_shape, max_abs_err=err)
+
+
+def run_k2(name_power):
+    """Phases 4 and 5 (K2 and its schedule kernel against their plain
+    versions, K2's main path on mesh_demo)."""
+    phase_schedule_parity("cuda")
+    worst2 = phase_k2_parity("cuda")
+    print(f"phase-4 K2 parity worst max_abs_err {worst2:.3e}", flush=True)
+    res2 = phase_k2_main("cuda")
+    print(f"[{name_power}] mesh_demo end to end {res2['rays_per_s']:.6g} "
+          f"rays/s (800x600 x 8 passes x 8 bounces / "
+          f"{res2['window_s']:.4f} s); K2 {res2['ms_launch']:.4f} ms/launch, "
+          f"{res2['k2_ms']:.4f} ms/pass (forced: " + ", ".join(
+              f"{k} {v[1]:.4f}" for k, v in res2["by_shape"].items()
+              if k != "auto") + f"; bound {res2['bound_ms']:.4f} ms, "
+          f"{res2['bound_by']}); plain version {res2['plain_ms']:.1f} ms/pass",
+          flush=True)
+    return res2
 
 
 def run_whole(name_power):
@@ -4573,8 +4704,8 @@ def run_trace_parity(name_power):
 
 def main(argv=()) -> int:
     """With no arguments every phase; `--only k1` (phases 1-3 and K1's
-    windows, K1 built alone), `--only whole` (phases 1 and 6, K2 and
-    its counting build built), `--only trace` (phases 1 and 7, the trace
+    windows, K1 built alone), `--only k2` (phases 1, 4 and 5) and `--only
+    whole` (phases 1 and 6), K2 and its counting build built, `--only trace` (phases 1 and 7, the trace
     kernels built alone), `--only dense` (phases 1 and 13, K1 and the
     trace kernels built), `--only diff` (phases 1 and 14, the trace
     kernels built alone), `--only tools` (phases 1 and 15, K1 and K2
@@ -4583,7 +4714,7 @@ def main(argv=()) -> int:
     a host of 2 cards or more; its kernels line too) run one part, for a
     quick look."""
     only = None
-    parts = ("k1", "whole", "trace", "dense", "diff", "tools", "multi",
+    parts = ("k1", "k2", "whole", "trace", "dense", "diff", "tools", "multi",
              "multicard")
     if argv:
         if len(argv) != 2 or argv[0] != "--only" or argv[1] not in parts:
@@ -4599,6 +4730,9 @@ def main(argv=()) -> int:
     if only == "k1":
         phase_builds(["megakernel"])
         run_k1(name_power)
+    elif only == "k2":
+        phase_builds(["bounce_kernel"], [("bounce_kernel", kernels.K2_COUNTS)])
+        run_k2(name_power)
     elif only == "whole":
         phase_builds(["bounce_kernel"], [("bounce_kernel", kernels.K2_COUNTS)])
         run_whole(name_power)
@@ -4630,18 +4764,7 @@ def main(argv=()) -> int:
     phase_builds(["megakernel", "bounce_kernel", "trace_kernels"],
                  [("bounce_kernel", kernels.K2_COUNTS)])
     res, k1_windows = run_k1(name_power)
-
-    worst2 = phase_k2_parity("cuda")
-    print(f"phase-4 K2 parity worst max_abs_err {worst2:.3e}", flush=True)
-    res2 = phase_k2_main("cuda")
-    print(f"[{name_power}] mesh_demo end to end {res2['rays_per_s']:.6g} "
-          f"rays/s (800x600 x 8 passes x 8 bounces / "
-          f"{res2['window_s']:.4f} s); K2 {res2['ms_launch']:.4f} ms/launch, "
-          f"{res2['k2_ms']:.4f} ms/pass (forced: " + ", ".join(
-              f"{k} {v[1]:.4f}" for k, v in res2["by_shape"].items()
-              if k != "auto") + f"; bound {res2['bound_ms']:.4f} ms, "
-          f"{res2['bound_by']}); plain version {res2['plain_ms']:.1f} ms/pass",
-          flush=True)
+    res2 = run_k2(name_power)
     run_whole(name_power)
 
     k4b, behind = run_trace_parity(name_power)

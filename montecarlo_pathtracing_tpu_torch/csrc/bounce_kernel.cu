@@ -21,8 +21,10 @@
 //
 // Design. All per-ray state in registers; in wavefront mode a ray's column
 // `ray` of the [15, M] f32 and [4, M] int32 state is read and written back
-// in place. The TPU's 1024-ray tile survives only as the row of the host's
-// super schedule a ray reads (ord/ent[ray / 1024]). The TPU's 16-slot DMA
+// in place. The TPU's 1024-ray tile survives only as the row of the super
+// schedule a ray reads (ord/ent[ray / 1024]), which a second kernel of this
+// file, schedule_kernel, builds on the card before each launch (one block a
+// tile; the plain version is bounce_kernel.py::_schedules). The TPU's 16-slot DMA
 // ring, its per-sublane predication and its MXU one-hot winner gather are
 // not carried over: the walk keeps the index of its winning triangle or
 // prim and reads that one's attributes once, at the merge.
@@ -597,6 +599,240 @@ void launch_cull(const Params& p, int cull, cudaStream_t stream) {
     launch<TRANSPARENT, FLAT, false>(p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// the per-tile nearest-first super schedule (bounce_kernel.py::_schedules)
+// ---------------------------------------------------------------------------
+//
+// One block per 1024-ray tile of the wavefront. It reduces the tile's rays to
+// their bundle (the least and greatest o and d per axis; min and max do not
+// depend on the order, so this is exact), computes the conservative entry
+// bound of every super in _schedules' order (each mesh instance's supers in
+// its local frame, then each large group's, then, with the small table's
+// cull, each small group's), and sorts each segment ascending and stably by
+// rank: an entry's rank counts the entries of its segment that are smaller,
+// or equal with a lower index, nan last, which is torch.sort(stable=True)'s
+// order. Every product, sum, quotient and square root rounds on its own (the
+// _rn intrinsics, since this file builds with contraction on), as each torch
+// op does; the 3x3 products sum in index order. min and max carry nan
+// through, as torch.minimum, torch.maximum and amin do.
+
+constexpr int SCHED_BLOCK = 256;
+constexpr float SHRINK = 0x1.fff2e4p-1f;  // float32(1 - 1e-4), as _schedules
+constexpr float MARGIN = 1e-4f;
+
+struct SchedParams {
+  const float* stf;    // [15,M] wavefront state: rows 0-2 o, 3-5 d
+  const float* msc;    // [37,n_mesh]: rows 0-11 the inverse affine
+  const int* msi;      // [4,n_mesh] chunk start, supers, super start, 0
+  const float* sbb;    // [6,Sm] mesh super boxes (mesh-local)
+  const int* ana;      // [A,4] (shape code, chunk start, chunks, super start)
+  const float* asbb;   // [6,Sa] large groups' super boxes (world)
+  const int* groups;   // [G,4] (shape code, start, count, super start)
+  const float* gsbb;   // [6,Sg] small groups' super boxes (world)
+  int* ord;            // [M/TILE,1,W] out: each segment's local order
+  float* ent;          // [M/TILE,1,W] out: its entry bounds, ascending
+  float* scratch;      // [M/TILE,W] the unsorted entry bounds
+  int M, n_mesh, Sm, A, Sa, G, Sg, cull, mesh_stot, sched_base;
+  int Stot;            // the schedule's length: every segment's supers
+  int W;               // row width: Stot, or 1 when there is no segment
+};
+
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
+
+// a ray bundle: the least and greatest origin and direction per axis
+struct Bundle {
+  float olo[3], ohi[3], dlo[3], dhi[3];
+};
+
+// the feasible t >= 0 interval [lo, hi] of a * t <= b (_cond_interval)
+__device__ __forceinline__ void cond_interval(float a, float b, float& lo, float& hi) {
+  const bool pos = a > 0.0f, neg = a < 0.0f, zer = !(pos || neg);
+  const float ratio = __fdiv_rn(b, zer ? 1.0f : a);
+  lo = neg ? (ratio != ratio ? ratio : fmaxf(ratio, 0.0f)) : 0.0f;
+  hi = pos ? ratio : INF;
+  if (zer && b < 0.0f) hi = -1.0f;
+}
+
+// the bundle's conservative entry distance into box `col` of a [6, S]
+// table, INF where it cannot reach it or the box is padding
+// (bundle_box_entry)
+__device__ float bundle_entry(const Bundle& b, const float* box, int S, int col) {
+  float t_lo = 0.0f, t_hi = INF;
+  bool real = true;
+  for (int c = 0; c < 3; ++c) {
+    const float blo = __ldg(box + c * S + col), bhi = __ldg(box + (3 + c) * S + col);
+    float lo1, hi1, lo2, hi2;
+    cond_interval(b.dlo[c], __fsub_rn(bhi, b.olo[c]), lo1, hi1);
+    cond_interval(-b.dhi[c], __fsub_rn(b.ohi[c], blo), lo2, hi2);
+    t_lo = nan_max(t_lo, nan_max(lo1, lo2));
+    t_hi = nan_min(t_hi, nan_min(hi1, hi2));
+    real = real && (blo <= bhi);
+  }
+  return (t_hi >= t_lo && real) ? t_lo : INF;
+}
+
+// l . x in index order
+__device__ __forceinline__ float dot_rn(float l0, float l1, float l2, const float* x) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(l0, x[0]), __fmul_rn(l1, x[1])), __fmul_rn(l2, x[2]));
+}
+
+// mesh instance mi's local-frame bundle of the world bundle w by centre +-
+// radius through the inverse affine map, and dmin, the least |d_local| over
+// its direction interval
+__device__ void local_bundle(const SchedParams& p, int mi, const Bundle& w, Bundle& b,
+                             float& dmin) {
+  float iv[12];
+#pragma unroll
+  for (int r = 0; r < 12; ++r) iv[r] = __ldg(p.msc + r * p.n_mesh + mi);
+  float oc[3], orad[3], dc[3], drad[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    oc[c] = __fmul_rn(__fadd_rn(w.olo[c], w.ohi[c]), 0.5f);
+    orad[c] = __fmul_rn(__fsub_rn(w.ohi[c], w.olo[c]), 0.5f);
+    dc[c] = __fmul_rn(__fadd_rn(w.dlo[c], w.dhi[c]), 0.5f);
+    drad[c] = __fmul_rn(__fsub_rn(w.dhi[c], w.dlo[c]), 0.5f);
+  }
+  float sq[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float l0 = iv[4 * r], l1 = iv[4 * r + 1], l2 = iv[4 * r + 2];
+    const float a0 = fabsf(l0), a1 = fabsf(l1), a2 = fabsf(l2);
+    const float oc_l = __fadd_rn(dot_rn(l0, l1, l2, oc), iv[4 * r + 3]);
+    const float orad_l = dot_rn(a0, a1, a2, orad);
+    const float dc_l = dot_rn(l0, l1, l2, dc);
+    const float drad_l = dot_rn(a0, a1, a2, drad);
+    b.olo[r] = __fsub_rn(oc_l, orad_l);
+    b.ohi[r] = __fadd_rn(oc_l, orad_l);
+    b.dlo[r] = __fsub_rn(dc_l, drad_l);
+    b.dhi[r] = __fadd_rn(dc_l, drad_l);
+    const float cmin = (b.dlo[r] <= 0.0f && b.dhi[r] >= 0.0f)
+                           ? 0.0f
+                           : nan_min(fabsf(b.dlo[r]), fabsf(b.dhi[r]));
+    sq[r] = __fmul_rn(cmin, cmin);
+  }
+  dmin = __fsqrt_rn(__fadd_rn(__fadd_rn(sq[0], sq[1]), sq[2]));
+}
+
+// f(kind, index, schedule offset, supers) for each segment of the
+// schedule, in its order: kind 0 mesh instances, 1 large groups, 2 the
+// small groups (with cull)
+template <class F>
+__device__ void for_segments(const SchedParams& p, F f) {
+  for (int mi = 0; mi < p.n_mesh; ++mi)
+    f(0, mi, __ldg(p.msi + 2 * p.n_mesh + mi), __ldg(p.msi + p.n_mesh + mi));
+  int off = p.mesh_stot;
+  for (int gi = 0; gi < p.A; ++gi) {
+    const int n = __ldg(p.ana + 4 * gi + 2) / TRI_SUPER;
+    f(1, gi, off, n);
+    off += n;
+  }
+  if (p.cull) {
+    for (int gi = 0; gi < p.G; ++gi)
+      f(2, gi, p.sched_base + __ldg(p.groups + 4 * gi + 3),
+        (__ldg(p.groups + 4 * gi + 2) + SUPER - 1) / SUPER);
+  }
+}
+
+// torch.sort(stable=True)'s order: a before b (indices ia, ib)
+__device__ __forceinline__ bool sorts_before(float a, int ia, float b, int ib) {
+  if (a != a) return b != b && ia < ib;
+  if (b != b) return true;
+  return a < b || (a == b && ia < ib);
+}
+
+__global__ void __launch_bounds__(SCHED_BLOCK) schedule_kernel(SchedParams p) {
+  __shared__ float part[12][SCHED_BLOCK / 32];
+  __shared__ float red[12];
+  const int tid = threadIdx.x;
+  const size_t row = static_cast<size_t>(blockIdx.x) * p.W;
+
+  // the tile's bundle: [0,3) least o, [3,6) greatest o, [6,9) least d,
+  // [9,12) greatest d
+  float v[12];
+  const int ray0 = blockIdx.x * TILE + tid;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    v[c] = v[3 + c] = p.stf[c * p.M + ray0];
+    v[6 + c] = v[9 + c] = p.stf[(3 + c) * p.M + ray0];
+  }
+  for (int ray = ray0 + SCHED_BLOCK; ray < (blockIdx.x + 1) * TILE; ray += SCHED_BLOCK) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float o = p.stf[c * p.M + ray], d = p.stf[(3 + c) * p.M + ray];
+      v[c] = nan_min(v[c], o);
+      v[3 + c] = nan_max(v[3 + c], o);
+      v[6 + c] = nan_min(v[6 + c], d);
+      v[9 + c] = nan_max(v[9 + c], d);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 12; ++k) {
+    const bool lo = (k / 3) % 2 == 0;
+    for (int off = 16; off > 0; off >>= 1) {
+      const float x = __shfl_xor_sync(0xffffffffu, v[k], off);
+      v[k] = lo ? nan_min(v[k], x) : nan_max(v[k], x);
+    }
+    if (tid % 32 == 0) part[k][tid / 32] = v[k];
+  }
+  __syncthreads();
+  if (tid < 12) {
+    const bool lo = (tid / 3) % 2 == 0;
+    float x = part[tid][0];
+    for (int w = 1; w < SCHED_BLOCK / 32; ++w)
+      x = lo ? nan_min(x, part[tid][w]) : nan_max(x, part[tid][w]);
+    red[tid] = x;
+  }
+  __syncthreads();
+  Bundle world;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    world.olo[c] = red[c];
+    world.ohi[c] = red[3 + c];
+    world.dlo[c] = red[6 + c];
+    world.dhi[c] = red[9 + c];
+  }
+
+  // every segment's entry bounds, unsorted; the local frame's are scaled
+  // by dmin before the INF test (INF * 0 would be nan)
+  float* e = p.scratch + row;
+  for_segments(p, [&](int kind, int idx, int off, int n) {
+    if (kind == 0) {
+      Bundle lb;
+      float dmin;
+      local_bundle(p, idx, world, lb, dmin);
+      for (int k = tid; k < n; k += SCHED_BLOCK) {  // off: its super start
+        const float raw = bundle_entry(lb, p.sbb, p.Sm, off + k);
+        e[off + k] = raw >= INF ? INF : __fsub_rn(__fmul_rn(__fmul_rn(raw, dmin), SHRINK), MARGIN);
+      }
+    } else {
+      const float* box = kind == 1 ? p.asbb : p.gsbb;
+      const int S = kind == 1 ? p.Sa : p.Sg;
+      const int ss = __ldg((kind == 1 ? p.ana : p.groups) + 4 * idx + 3);
+      for (int k = tid; k < n; k += SCHED_BLOCK) {
+        const float raw = bundle_entry(world, box, S, ss + k);
+        e[off + k] = raw >= INF ? INF : __fsub_rn(__fmul_rn(raw, SHRINK), MARGIN);
+      }
+    }
+  });
+  if (tid == 0 && p.Stot == 0) {
+    p.ord[row] = 0;  // no segment: the plain version's [nt, 1, 1] of 0, INF
+    p.ent[row] = INF;
+  }
+  __syncthreads();
+
+  // each segment sorted by rank
+  for_segments(p, [&](int, int, int off, int n) {
+    for (int i = tid; i < n; i += SCHED_BLOCK) {
+      const float x = e[off + i];
+      int rank = 0;
+      for (int j = 0; j < n; ++j) rank += sorts_before(e[off + j], j, x, i);
+      p.ord[row + off + rank] = i;
+      p.ent[row + off + rank] = x;
+    }
+  });
+}
+
 }  // namespace
 
 extern "C" int fused_call(void* stf, void* sti, int M, float ior, const void* tab, int P,
@@ -666,6 +902,45 @@ extern "C" int fused_call(void* stf, void* sti, int M, float ior, const void* ta
   return static_cast<int>(cudaGetLastError());
 }
 
+// the nearest-first super schedule of the wavefront stf [15, M] into ord and
+// ent [M/TILE, 1, max(Stot, 1)], scratch [M/TILE, max(Stot, 1)]: one block a
+// tile, on `stream`, no sync
+extern "C" int fused_schedule(const void* stf, int M, const void* msc, const void* msi,
+                              int n_mesh, const void* sbb, int Sm, const void* ana, int A,
+                              const void* asbb, int Sa, const void* groups, int G,
+                              const void* gsbb, int Sg, int cull_small, int mesh_stot,
+                              int sched_base, int Stot, void* ord, void* ent, void* scratch,
+                              void* stream) {
+  if (M <= 0 || M % TILE != 0 || n_mesh < 0 || A < 0 || G < 0 || mesh_stot < 0 ||
+      sched_base < mesh_stot || Stot < sched_base)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SchedParams p;
+  p.stf = static_cast<const float*>(stf);
+  p.msc = static_cast<const float*>(msc);
+  p.msi = static_cast<const int*>(msi);
+  p.sbb = static_cast<const float*>(sbb);
+  p.ana = static_cast<const int*>(ana);
+  p.asbb = static_cast<const float*>(asbb);
+  p.groups = static_cast<const int*>(groups);
+  p.gsbb = static_cast<const float*>(gsbb);
+  p.ord = static_cast<int*>(ord);
+  p.ent = static_cast<float*>(ent);
+  p.scratch = static_cast<float*>(scratch);
+  p.M = M;
+  p.n_mesh = n_mesh;
+  p.Sm = Sm;
+  p.A = A;
+  p.Sa = Sa;
+  p.G = G;
+  p.Sg = Sg;
+  p.cull = cull_small;
+  p.mesh_stot = mesh_stot;
+  p.sched_base = sched_base;
+  p.Stot = Stot;
+  p.W = Stot > 0 ? Stot : 1;
+  schedule_kernel<<<M / TILE, SCHED_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // the shape rule of this build: LANES_MANY, LANES_FEW, MANY_RAYS
 extern "C" void fused_shape_rule(int* out) {

@@ -210,6 +210,13 @@ def _bind_bounce_kernel(lib):
         p, i,                               # n_scan, lanes per ray
         p, p]                               # counts, stream
     lib.fused_call.restype = ctypes.c_int
+    lib.fused_schedule.argtypes = [
+        p, i, p, p, i,                      # stf, M, msc, msi, n_mesh
+        p, i, p, i, p, i,                   # sbb Sm, ana A, asbb Sa
+        p, i, p, i, i,                      # groups G, gsbb Sg, cull_small
+        i, i, i,                            # mesh_stot, sched_base, Stot
+        p, p, p, p]                         # ord, ent, scratch, stream
+    lib.fused_schedule.restype = ctypes.c_int
     lib.fused_shape_rule.argtypes = [p]
     lib.fused_shape_rule.restype = None
     lib.fused_error_string.argtypes = [ctypes.c_int]
@@ -217,8 +224,8 @@ def _bind_bounce_kernel(lib):
 
 
 def bounce_kernel_lib(counts: bool = False) -> ctypes.CDLL:
-    """K2 (csrc/bounce_kernel.cu), built and loaded once per process; with
-    `counts`, its counting build (K2_COUNTS)."""
+    """K2 and its schedule kernel (csrc/bounce_kernel.cu), built and loaded
+    once per process; with `counts`, its counting build (K2_COUNTS)."""
     return _load("bounce_kernel", K2_COUNTS if counts else (),
                  _bind_bounce_kernel)
 

@@ -9,10 +9,13 @@ Moller-Trumbore over 128-triangle chunks, the same walk in world distance
 over the 128-prim chunks of every large analytic group, and then the
 megakernel's bounce step.
 
-The host builds the tables once per call (`fused_inputs`) and, before
-each launch, the per-tile nearest-first super schedule (`_schedules`):
+The host builds the tables once per call (`fused_inputs`). Before each
+launch `with_schedule` builds the per-tile nearest-first super schedule:
 for each 1024-ray tile and each instance or group, its supers sorted by
-the tile's conservative entry bound. Mesh scenes run in wavefront mode:
+the tile's conservative entry bound. On a CUDA device one launch of a
+second kernel of csrc/bounce_kernel.cu builds it (`k2_schedule_launch`),
+on the CPU `_schedules`' torch ops, its plain version. Mesh scenes run in
+wavefront mode:
 one launch per bounce; finished lanes are parked outside every box, and
 from bounce 1 on the wavefront is re-sorted by direction octant and
 origin Morton code (ops/sort_rays) so that each tile is a tight bundle.
@@ -22,7 +25,7 @@ depend on the tile's rays alone, so a pass function's `MegaMemo` keeps
 them across passes.
 
 Three functions compute one K2 call from the same `FusedInputs` and
-wavefront state:
+wavefront state (with its schedule):
   - `fused_call_reference`: the plain PyTorch version over flat [M]
     tensors. It folds every chunk of a mesh instance or group brute force
     in pool order ([M, 128] per chunk) where the kernel walks the
@@ -340,8 +343,14 @@ def fused_inputs(scene, refract_ind) -> FusedInputs:
 
 
 def with_schedule(inp: FusedInputs, scene, stf) -> FusedInputs:
-    """inp with the schedule of the wavefront state stf [15, M]."""
-    ordr, entr = _schedules(scene, stf[0:3], stf[3:6])
+    """inp with the schedule of the wavefront state stf [15, M]: built by
+    `_schedules`' torch ops for tensors on the CPU, by one launch of the
+    schedule kernel (`k2_schedule_launch`, from inp's tables) for CUDA
+    tensors; it raises otherwise."""
+    if stf.device.type == "cpu":
+        ordr, entr = _schedules(scene, stf[0:3], stf[3:6])
+    else:
+        ordr, entr = k2_schedule_launch(inp, stf)
     return inp._replace(ordr=ordr, entr=entr)
 
 
@@ -642,47 +651,60 @@ def fused_call_reference(inp: FusedInputs, stf, sti, whole_path: int,
 # the kernel wrapper and the route
 # --------------------------------------------------------------------------
 
+def _cols(t, rows):
+    """The shape a [rows, *] table should have: (rows, its width)."""
+    return (rows, t.shape[1] if t.dim() == 2 else -1)
+
+
+def _check_tensors(kernel: str, dev, want):
+    """Raise unless each tensor of want {name: (tensor, dtype, shape)}
+    lies on dev with that dtype and shape, contiguous."""
+    for name, (t, dtype, shape) in want.items():
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{kernel} input {name}: {t.device} {t.dtype} "
+                f"{tuple(t.shape)}, want {dev} {dtype} {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} input {name} is not contiguous")
+
+
+def _state_width(kernel: str, stf) -> int:
+    """M of a wavefront state stf [15, M] on a CUDA device; raises unless
+    it has that device and M is a positive multiple of TILE."""
+    if stf.device.type != "cuda":
+        raise ValueError(f"{kernel} needs CUDA tensors, got {stf.device}")
+    m = stf.shape[1] if stf.dim() == 2 else -1
+    if m <= 0 or m % TILE:
+        raise ValueError(f"{kernel} needs a [15, M] state with M % {TILE} "
+                         f"== 0, got {tuple(stf.shape)}")
+    return m
+
+
 def _check_inputs(inp: FusedInputs, stf, sti):
     """Raise unless every tensor K2 reads has the device, dtype, shape
     and layout the kernel assumes."""
-    dev = stf.device
-    if dev.type != "cuda":
-        raise ValueError(f"K2 needs CUDA tensors, got {dev}")
-    m = stf.shape[1] if stf.dim() == 2 else -1
-    if m <= 0 or m % TILE:
-        raise ValueError(f"K2 needs a [15, M] state with M % {TILE} == 0, "
-                         f"got {tuple(stf.shape)}")
+    m = _state_width("K2", stf)
     if inp.ordr is None or inp.entr is None:
         raise ValueError("K2 input has no schedule (with_schedule)")
     stot = inp.ordr.shape[2]
     f32, i32 = torch.float32, torch.int32
-
-    def cols(t, rows):
-        return (rows, t.shape[1] if t.dim() == 2 else -1)
-
     want = {"stf": (stf, f32, (SF, m)), "sti": (sti, i32, (SU, m)),
-            "tab": (inp.tab, f32, cols(inp.tab, 38)),
-            "gsbb": (inp.gsbb, f32, cols(inp.gsbb, 6)),
+            "tab": (inp.tab, f32, _cols(inp.tab, 38)),
+            "gsbb": (inp.gsbb, f32, _cols(inp.gsbb, 6)),
             "group_desc": (inp.group_desc, i32, (len(inp.groups), 4)),
             "msc": (inp.msc, f32, (37, max(1, len(inp.meshes)))),
             "msi": (inp.msi, i32, (4, max(1, len(inp.meshes)))),
-            "cbb": (inp.cbb, f32, cols(inp.cbb, 6)),
-            "sbb": (inp.sbb, f32, cols(inp.sbb, 6)),
+            "cbb": (inp.cbb, f32, _cols(inp.cbb, 6)),
+            "sbb": (inp.sbb, f32, _cols(inp.sbb, 6)),
             "tpool": (inp.tpool, f32, (inp.tpool.shape[0], 18, LANES)),
-            "acbb": (inp.acbb, f32, cols(inp.acbb, 6)),
-            "asbb": (inp.asbb, f32, cols(inp.asbb, 6)),
+            "acbb": (inp.acbb, f32, _cols(inp.acbb, 6)),
+            "asbb": (inp.asbb, f32, _cols(inp.asbb, 6)),
             "apool": (inp.apool, f32, (inp.apool.shape[0], 32, LANES)),
             "agr": (inp.agr, f32, (6, max(1, len(inp.ana_groups)))),
             "ana_desc": (inp.ana_desc, i32, (len(inp.ana_groups), 4)),
             "ordr": (inp.ordr, i32, (m // TILE, 1, stot)),
             "entr": (inp.entr, f32, (m // TILE, 1, stot))}
-    for name, (t, dtype, shape) in want.items():
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(
-                f"K2 input {name}: {t.device} {t.dtype} {tuple(t.shape)}, "
-                f"want {dev} {dtype} {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"K2 input {name} is not contiguous")
+    _check_tensors("K2", stf.device, want)
     if not 0 < inp.tab.shape[1] <= MEGA_MAX_PRIMS:
         raise ValueError(f"K2 prim table width {inp.tab.shape[1]}")
 
@@ -774,6 +796,66 @@ def k2_launch(inp: FusedInputs, stf, sti, whole_path: int, work=None,
 k2_launch.launches = 0
 k2_launch.launches_on = collections.Counter()
 k2_launch.whole_path_launches = 0
+
+
+def _schedule_len(inp: FusedInputs) -> int:
+    """Stot: the supers of every mesh instance and large group, and with
+    the small table's cull those of every small group."""
+    small = (sum(-(-g[2] // MEGA_SUPER) for g in inp.groups) if inp.cull
+             else 0)
+    return inp.sched_base + small
+
+
+def k2_schedule_launch(inp: FusedInputs, stf):
+    """The nearest-first super schedule of the wavefront state stf [15, M]
+    from inp's tables: one launch of csrc/bounce_kernel.cu's
+    schedule_kernel, a block a 1024-ray tile, on the current CUDA stream,
+    with no sync. Returns (ordr [M/TILE, 1, Stot] i32, entr f32), what
+    `_schedules` gives, entry bounds to an ulp (the 3x3 products may sum
+    in another order) and orders equal but for near-ties; [.., 1] of 0 and
+    INF when there is no segment. Raises on bad inputs and on a refused
+    launch; counts each launch in `k2_schedule_launch.launches` and by
+    card, apart from `k2_launch`'s (`launches_per_pass` counts K1's and
+    K2's launches alone)."""
+    m = _state_width("K2's schedule", stf)
+    dev = stf.device
+    f32, i32 = torch.float32, torch.int32
+    n_mesh = max(1, len(inp.meshes))
+    _check_tensors("K2's schedule", dev, {
+        "stf": (stf, f32, (SF, m)),
+        "msc": (inp.msc, f32, (37, n_mesh)),
+        "msi": (inp.msi, i32, (4, n_mesh)),
+        "sbb": (inp.sbb, f32, _cols(inp.sbb, 6)),
+        "ana_desc": (inp.ana_desc, i32, (len(inp.ana_groups), 4)),
+        "asbb": (inp.asbb, f32, _cols(inp.asbb, 6)),
+        "group_desc": (inp.group_desc, i32, (len(inp.groups), 4)),
+        "gsbb": (inp.gsbb, f32, _cols(inp.gsbb, 6))})
+    stot = _schedule_len(inp)
+    shape = (m // TILE, 1, max(stot, 1))
+    ordr = torch.empty(shape, dtype=i32, device=dev)
+    entr = torch.empty(shape, dtype=f32, device=dev)
+    scratch = torch.empty(shape, dtype=f32, device=dev)
+    lib = _lib(False)
+    with kernels.on_device(dev):
+        err = lib.fused_schedule(
+            stf.data_ptr(), m, inp.msc.data_ptr(), inp.msi.data_ptr(),
+            len(inp.meshes), inp.sbb.data_ptr(), inp.sbb.shape[1],
+            inp.ana_desc.data_ptr(), len(inp.ana_groups),
+            inp.asbb.data_ptr(), inp.asbb.shape[1],
+            inp.group_desc.data_ptr(), len(inp.groups),
+            inp.gsbb.data_ptr(), inp.gsbb.shape[1], int(inp.cull),
+            inp.mesh_stot, inp.sched_base, stot, ordr.data_ptr(),
+            entr.data_ptr(), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"K2's schedule launch failed: "
+                           f"{lib.fused_error_string(err).decode()}")
+    kernels.count_launch(k2_schedule_launch, dev)
+    return ordr, entr
+
+
+k2_schedule_launch.launches = 0
+k2_schedule_launch.launches_on = collections.Counter()
 
 
 def fused_call(inp: FusedInputs, stf, sti, whole_path: int):
